@@ -7,24 +7,40 @@ Needs one CUDA card (an H100: the kernels build for sm_90a with nvcc) and
 exits non-zero, printing no result, without one or outside a checkout of
 the repository. Phases, each failing the run when its check fails:
 
-1. device  — the card's name and power limit (nvidia-smi);
-2. build   — every kernel of the serving path, built with nvcc from the
-             checkout's sources (one nvcc per source, started together);
-3. kernels — the ragged paged-attention kernel against its plain PyTorch
-             version on the card: decode, ragged prefill, suffix and
-             q_len=0 rows, groups 1 and 4, f32 and bf16 pools, dead pool
-             rows and the scratch page filled with NaN;
-4. serving — greedy Llama-2-7B (full width, random weights from a seed,
-             bf16) through ContinuousBatcher's ragged path: 8 requests, 4
-             slots, admissions mid-flight. Checks the kernel's launch
-             count, the drained pool, and every emitted token against a
-             teacher-forced dense forward of the same weights (bf16, and
-             again with the whole engine in f32); profiles one decode
-             burst;
-5. times   — the kernel at the serving path's decode and prefill shapes
-             beside its byte bound, its plain version and
-             scaled_dot_product_attention (a yardstick the port never
-             calls); CUDA events, median of 30 runs after warm-up.
+1. device   — the card's name and power limit (nvidia-smi);
+2. build    — every kernel source, built with nvcc from the checkout (one
+              nvcc per source, started together);
+3. kernels  — the ragged paged-attention kernel (K3) against its plain
+              PyTorch version on the card: decode, ragged prefill, suffix
+              and q_len=0 rows, groups 1 and 4, f32 and bf16 pools, dead
+              pool rows and the scratch page filled with NaN;
+4. serving  — greedy Llama-2-7B (full width, random weights from a seed,
+              bf16) through ContinuousBatcher's ragged path: 8 requests, 4
+              slots, admissions mid-flight. Checks K3's launch count, the
+              drained pool, and every emitted token against a
+              teacher-forced dense forward of the same weights (bf16, and
+              again with the whole engine in f32; the dense forward runs
+              the flash kernel K1); profiles one decode burst;
+5. times    — K3 at the serving path's decode and prefill shapes beside
+              its byte bound, its plain version and
+              scaled_dot_product_attention (a yardstick the port never
+              calls); CUDA events, median of 30 runs after warm-up;
+6. flash    — the flash kernels (K1 forward; K2 as flash_bwd_dq and
+              flash_bwd_dkv) against their plain versions: f32 and bf16,
+              causal and not, at the training shape (B=1, L=S=2048, H=32,
+              D=128), a ragged length, L<S, L>S and D=64 with a scale,
+              each output row within its own bound; then each kernel's
+              time at the training shape beside its bound, its plain
+              version and SDPA's forward and backward, and K2's two
+              kernels together beside the bound of the whole backward;
+7. training — Llama-2-7B, bf16, B=1, T=2048, AdamW (lr 3e-4, weight
+              decay 0.1, bf16 moments), remat: one full-width layer with
+              K1/K2 against the plain versions (its attention output row
+              by row, its nine weight gradients), the first loss in bf16
+              against f32 weights, five steps with falling finite losses,
+              the K1/K2 launch counts the path implies (2, 1 and 1 per
+              layer per step), step time, tokens/s, peak memory, and one
+              profiled step.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -406,62 +422,370 @@ def timed_shape(kind, B, q_len, kv_len, H, KV, hd, ps, max_pages):
     return rec
 
 
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    try:
-        from paddle_tpu_torch.models.llama import LlamaConfig, init_params
-        from paddle_tpu_torch.ops import _build
-    except ImportError as e:
-        print(f"chip_smoke: the paddle_tpu_torch package is missing ({e}); "
-              "run from a checkout of the repository", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_all = time.perf_counter()
+# --------------------------------------------------------------- phase 6
+# (label, B, L, S, H, D, sm_scale): the training path's shape first
+FLASH_CASES = (("path", 1, 2048, 2048, 32, 128, None),
+               ("ragged", 1, 200, 200, 4, 128, None),
+               ("L<S", 1, 128, 384, 4, 128, None),
+               ("L>S", 1, 384, 128, 4, 128, None),
+               ("D=64", 2, 256, 256, 4, 64, 0.2))
 
-    # 1. device
-    t0 = time.perf_counter()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"[device] {torch.cuda.get_device_name(0)} | torch "
-          f"{torch.__version__} cuda {torch.version.cuda} | {card}",
+
+def flash_inputs(rng, B, L, S, H, D, dtype, device="cuda"):
+    """q, k, v, dout filled with N(0,1) from a seeded numpy generator."""
+    import torch
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+            .to(device).to(dtype)
+
+    return t(B, L, H, D), t(B, S, H, D), t(B, S, H, D), t(B, L, H, D)
+
+
+def flash_err(name, out, ref, dtype):
+    """(max |kernel − plain|, its worst share of the per-row bound
+    ``fa.tolerance``, see ops/flash_attention.py); fails past the bound."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    share = float(torch.nan_to_num(diff / fa.tolerance(ref, dtype),
+                                   nan=0.0).max())
+    check(bool(torch.isfinite(out).all()), f"{name}: kernel output not "
+          "finite")
+    check(share <= 1.0, f"{name}: |kernel − plain| reaches {share:.3f} of "
+          f"its per-row bound (max_abs_err {err})")
+    return err, share
+
+
+def flash_cases():
+    """K1 and K2 against their plain versions: every case of FLASH_CASES
+    in f32 and bf16, causal and not, each output held row by row. Returns
+    {kernel: worst error at the path's bf16 causal shape}."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(SEED + 4)
+    worst, shares = {}, {}
+    for label, B, L, S, H, D, sm in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v, do = flash_inputs(rng, B, L, S, H, D, dtype)
+                out, lse = fa.flash_forward(q, k, v, causal, sm)
+                torch.cuda.synchronize()
+                ref, ref_lse = fa.flash_attention_reference(q, k, v, causal,
+                                                            sm)
+                name = f"{label} {str(dtype)[6:]} causal={causal}"
+                errs = {"out": flash_err(name + " out", out, ref, dtype)}
+                dead = torch.isneginf(ref_lse)
+                check(bool((torch.isneginf(lse) == dead).all()),
+                      f"{name}: lse −inf rows differ")
+                check(bool((out.transpose(1, 2)[dead] == 0).all()),
+                      f"{name}: rows with no visible key are not 0")
+                lerr = float((lse[~dead] - ref_lse[~dead]).abs().max()) \
+                    if bool((~dead).any()) else 0.0
+                check(lerr <= fa.LSE_TOL, f"{name}: lse err {lerr}")
+                # K2 from the plain forward's out and lse, on both sides
+                dq, dk, dv = fa.flash_backward(q, k, v, ref, ref_lse, do,
+                                               causal, sm)
+                torch.cuda.synchronize()
+                rq, rk, rv = fa.flash_attention_bwd_reference(
+                    q, k, v, ref, ref_lse, do, causal, sm)
+                for gname, a, r in (("dq", dq, rq), ("dk", dk, rk),
+                                    ("dv", dv, rv)):
+                    errs[gname] = flash_err(f"{name} {gname}", a, r, dtype)
+                print(f"  flash-vs-plain {name:<30} lse_err={lerr:.2e} " +
+                      " ".join(f"{g}={e:.2e} ({r:.3f} of bound)"
+                               for g, (e, r) in errs.items()), flush=True)
+                for g, (_, r) in errs.items():
+                    key = f"{str(dtype)[6:]} {g}"
+                    shares[key] = max(shares.get(key, 0.0), r)
+                if label == "path" and dtype == torch.bfloat16 and causal:
+                    worst = {"flash_fwd": errs["out"][0],
+                             "flash_bwd_dq": errs["dq"][0],
+                             "flash_bwd_dkv": max(errs["dk"][0],
+                                                  errs["dv"][0])}
+    print("  worst share of the per-row bound over the cases: " +
+          ", ".join(f"{k} {v:.3f}" for k, v in shares.items()), flush=True)
+    return worst
+
+
+def flash_times(errs):
+    """K1 and both K2 kernels at the training path's shape (bf16, causal,
+    B=1, L=S=2048, H=32, D=128) beside their bounds, the plain versions
+    and scaled_dot_product_attention's forward and backward (a yardstick
+    the port never calls). CUDA events, median of 30 after 5 warm-ups."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    _, B, L, S, H, D, _ = FLASH_CASES[0]
+    rng = np.random.default_rng(SEED + 5)
+    q, k, v, do = flash_inputs(rng, B, L, S, H, D, torch.bfloat16)
+    scale = fa._scale(D, None)
+    out, lse = fa._flash_fwd(q, k, v, True, scale)
+    delta = fa._bwd_delta(out, do)
+    fwd_ms = time_ms(lambda: fa._flash_fwd(q, k, v, True, scale))
+    dq_ms = time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta, True, scale))
+    dkv_ms = time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta, True,
+                                         scale))
+    plain_fwd = time_ms(lambda: fa.flash_attention_reference(q, k, v, True))
+    plain_bwd = time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, True))
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True))
+    ref = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    dos = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(ref, (qs, ks, vs), dos,
+                                                  retain_graph=True))
+    pairs = B * H * sum(min(S, r + S - L + 1) for r in range(L))
+    item = 2
+    qkv = item * B * (L + 2 * S) * H * D
+    rows = 4 * B * H * L                          # one f32 per row
+    work = {   # (flops, bytes): each input read once, each output written
+        "flash_fwd": (4 * D * pairs, qkv + item * B * L * H * D + rows),
+        "flash_bwd_dq": (6 * D * pairs,
+                         qkv + 2 * item * B * L * H * D + 2 * rows),
+        "flash_bwd_dkv": (8 * D * pairs,
+                          qkv + item * B * L * H * D + 2 * rows
+                          + 2 * item * B * S * H * D),
+    }
+    times = {"flash_fwd": (fwd_ms, plain_fwd, lib_fwd),
+             "flash_bwd_dq": (dq_ms, plain_bwd, lib_bwd),
+             "flash_bwd_dkv": (dkv_ms, plain_bwd, lib_bwd)}
+    shape = f"B={B} L=S={L} H={H} D={D} bf16 causal"
+    recs = {}
+    for name, (flops, nbytes) in work.items():
+        ms, plain_ms, lib_ms = times[name]
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        recs[name] = {"ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes",
+                      "library_ms": lib_ms, "max_abs_err": errs.get(name),
+                      "shape": shape, "flops": flops, "bytes": nbytes,
+                      "tflops_per_s": flops / ms / 1e9}
+        print(f"  {name} {shape}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), bound "
+              f"{recs[name]['bound_ms']:.4f} ms ({recs[name]['bound_by']}), "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms", flush=True)
+    # K2 as a whole needs 5 products per visible pair (s, dp, dv, ds·k,
+    # dsᵀ·q); the dq/dkv split recomputes s and dp in both kernels (7)
+    k2_ms = dq_ms + dkv_ms
+    k2_split = recs["flash_bwd_dq"]["bound_ms"] \
+        + recs["flash_bwd_dkv"]["bound_ms"]
+    k2_bound = max(10 * D * pairs / PEAK_FLOPS["bfloat16"] * 1e3,
+                   (qkv + 2 * item * B * L * H * D + 2 * rows
+                    + item * B * (L + 2 * S) * H * D) / HBM_BYTES_PER_S * 1e3)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        recs[name].update(k2_ms=k2_ms, k2_bound_ms=k2_bound)
+    print(f"  K2 whole (flash_bwd_dq + flash_bwd_dkv) {shape}: {k2_ms:.4f} "
+          f"ms, bound of the whole backward {k2_bound:.4f} ms (5 products; "
+          f"the split's 7 sum to {k2_split:.4f} ms in the two kernels' "
+          f"bounds), plain {plain_bwd:.4f} ms, sdpa {lib_bwd:.4f} ms",
           flush=True)
-    phase("device", t0)
+    return recs
 
-    # 2. build
-    t0 = time.perf_counter()
-    report = _build.build_all()
-    for name, r in report.items():
-        regs = [ln.strip() for ln in r["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        spills = [ln for ln in regs if " 0 bytes spill" not in ln
-                  and "spill" in ln]
-        print(f"[build] {name}: {r['seconds']:.2f} s, "
-              f"{len(regs)} ptxas lines, {len(spills)} with spills",
+
+# --------------------------------------------------------------- phase 7
+TRAIN_T = 2048
+TRAIN_STEPS = 5
+LAYER_TOL = 2.0 ** -5      # × max|ref| per weight gradient, see layer_check
+# |bf16 loss − f32 loss| / f32 loss: about 6× the gap of 1.75e-4 that the
+# first runs of this check read at these weights and batch
+LOSS_REL_TOL = 1e-3
+
+
+def layer_check(cfg, device="cuda"):
+    """(a) One decoder layer at full width (D=4096, T=2048, bf16) through
+    K1/K2 against the same layer through their plain versions
+    (``flash_attention_plain``), from the same x and upstream gradient
+    (N(0,1), seeded numpy). Compared: the attention output (before wo),
+    row by row within ``fa.tolerance`` as in phase 6; the layer's output
+    and the gradients of its nine weights, where the kernels' roundings
+    of p and ds to bf16 and the bf16 roundings that follow give ≈ 2^-8 of
+    each value: LAYER_TOL = 2^-5 of each tensor's max leaves a 4× margin
+    over 2^-7. The layer's output is dominated by the residual x, so only
+    the attention output and the gradients can see attention."""
+    import torch
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg1 = dataclasses.replace(cfg, num_hidden_layers=1)
+    layer_p, _ = L.split_layer_params(L.init_params(cfg1, seed=SEED + 6,
+                                                    device=device))
+    rng = np.random.default_rng(SEED + 6)
+    shape = (1, TRAIN_T, cfg.hidden_size)
+    x = torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+        .to(device, cfg.dtype)
+    dy = torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+        .to(device, cfg.dtype)
+    pos = L._positions(1, TRAIN_T, x.device)
+
+    def run(flash):
+        seen = []
+
+        def attend(q, k, v, causal):
+            seen.append(flash(q, k, v, causal))
+            return seen[-1]
+
+        lp = {k: v[0].detach().requires_grad_() for k, v in layer_p.items()}
+        y = L._decoder_layer(x, lp, cfg, pos, flash=attend)[0]
+        y.backward(dy)
+        torch.cuda.synchronize()
+        return seen[0].detach(), {"out": y.detach(),
+                                  **{"d" + k: v.grad for k, v in lp.items()}}
+
+    att, got = run(fa.flash_attention_raw)
+    att_ref, ref = run(fa.flash_attention_plain)
+    err, share = flash_err("layer attention output", att, att_ref, cfg.dtype)
+    print(f"  layer attention max|kernel − plain| {err:.3e} ({share:.3f} of "
+          f"its per-row bound)", flush=True)
+    worst = share
+    for name, r in ref.items():
+        err = float((got[name].float() - r.float()).abs().max())
+        tol = LAYER_TOL * float(r.float().abs().max())
+        check(bool(torch.isfinite(got[name]).all()), f"layer {name} finite")
+        check(err <= tol, f"layer check {name}: {err} > {tol}")
+        worst = max(worst, err / tol)
+        print(f"  layer {name:<8} max|kernel − plain| {err:.3e} (tol "
+              f"{tol:.3e})", flush=True)
+    return worst
+
+
+def profile_train_step(step, toks, labels):
+    """torch.profiler over one training step: host wall, device busy, and
+    device time by kernel (flash kernels, GEMMs, the rest)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = step(toks, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+
+    def share(*keys):
+        return sum(r[0] for r in rows if any(k in r[2] for k in keys))
+
+    flash = {k: share(k + "_kernel") for k in ("flash_fwd", "flash_bwd_dq",
+                                               "flash_bwd_dkv")}
+    gemm = share("nvjet", "gemm", "sm90_xmma", "cutlass")
+    int64 = share("<long")        # the int64 passes of _sr_cast's hash
+    print(f"[profile] one training step: host wall {wall_ms:.1f} ms, device "
+          f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%), flash "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in flash.items())
+          + f", GEMMs {gemm:.1f} ms, int64 elementwise (the bf16 moments' "
+          f"stochastic-rounding hash) {int64:.1f} ms", flush=True)
+    for ms, n, key in rows[:12]:
+        print(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}")
+    return float(loss), {"wall_ms": wall_ms, "device_busy_ms": busy,
+                         "gemm_ms": gemm, "int64_ms": int64,
+                         **{k + "_ms": v for k, v in flash.items()}}
+
+
+def training_phase(cfg, device="cuda"):
+    """Phase 7: Llama-2-7B training, bf16, B=1, T=2048, AdamW(3e-4,
+    weight_decay=0.1, bf16 moments), remat=True. Checks (a) one layer at
+    full width against the plain attention, (b) the bf16 loss against the
+    f32 one on the same weights (both before the optimizer state exists),
+    (c) five steps of finite, falling loss on a repeated batch, (d) the
+    flash launch counts the path implies. Returns K1/K2 launches."""
+    import torch
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.models.trainer import LlamaTrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    torch.cuda.empty_cache()
+    print(f"[train] (a) one decoder layer, D={cfg.hidden_size}, "
+          f"T={TRAIN_T}, K1/K2 vs plain", flush=True)
+    layer_check(cfg, device)
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(SEED)
+    toks_np = rng.randint(0, cfg.vocab_size, (1, TRAIN_T)).astype(np.int32)
+    toks = torch.from_numpy(toks_np).to(device)
+    labels = torch.from_numpy(np.roll(toks_np, -1, axis=1)).to(device)
+
+    # (b) the first loss in bf16 against the same weights widened to f32
+    params = L.init_params(cfg, seed=SEED, device=device)
+    with torch.no_grad():
+        loss_b = float(L.llama_loss(params, toks, labels, cfg))
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params32 = {k: v.float() for k, v in params.items()}
+        del params
+        loss_f = float(L.llama_loss(params32, toks, labels, cfg32))
+    del params32
+    torch.cuda.empty_cache()
+    rel = abs(loss_b - loss_f) / abs(loss_f)
+    print(f"[train] (b) first loss bf16 {loss_b:.6f}, f32 {loss_f:.6f}, "
+          f"relative difference {rel:.2e} (tol {LOSS_REL_TOL})", flush=True)
+    check(np.isfinite(loss_b), f"bf16 loss {loss_b} not finite")
+    check(rel <= LOSS_REL_TOL, f"bf16 loss {loss_b} vs f32 {loss_f}")
+
+    # (c) five steps on the repeated batch
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.1,
+                moment_dtype=torch.bfloat16)
+    step = LlamaTrainStep(cfg, optimizer=opt, remat=True, seed=SEED,
+                          device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.clear()
+    losses, secs, peaks = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(toks, labels))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"[train] step {i + 1}: loss {float(losses[-1]):.6f}, "
+              f"{secs[-1] * 1e3:.1f} ms, peak allocated {peaks[-1]:.2f} GiB",
               flush=True)
-        for ln in regs:
-            print(f"  ptxas: {ln}")
-    phase("build", t0)
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")}
+    vals = [float(x) for x in losses]
+    n_layers = cfg.num_hidden_layers
+    expect = {"flash_fwd": 2 * n_layers * TRAIN_STEPS,
+              "flash_bwd_dq": n_layers * TRAIN_STEPS,
+              "flash_bwd_dkv": n_layers * TRAIN_STEPS}
+    med = statistics.median(secs[1:])
+    print(f"[train] losses {vals}; median step (steps 2-{TRAIN_STEPS}) "
+          f"{med * 1e3:.1f} ms = {TRAIN_T / med:.1f} tokens/s; peak "
+          f"allocated {max(peaks):.2f} GiB; launches {launches} (expected "
+          f"{expect})", flush=True)
+    check(all(np.isfinite(v) for v in vals), f"non-finite loss in {vals}")
+    check(vals[-1] < vals[0], f"loss did not fall: {vals}")
+    check(launches == expect, f"flash launches {launches} != {expect}")
+    after, _ = profile_train_step(step, toks, labels)
+    print(f"[train] loss after {TRAIN_STEPS} steps {after:.6f} (first "
+          f"{vals[0]:.6f})", flush=True)
+    check(np.isfinite(after) and after < vals[0],
+          f"loss after {TRAIN_STEPS} steps {after} not below {vals[0]}")
+    del step
+    torch.cuda.empty_cache()
+    return launches
 
-    # 3. kernel against its plain version
-    t0 = time.perf_counter()
-    kernel_cases()
-    phase("kernels", t0)
+
+def serving_phases(cfg):
+    """Phases 4 and 5: serve, check, profile, then time K3. Returns K3's
+    record for the kernels line."""
+    import torch
+    from paddle_tpu_torch.models.llama import init_params
 
     # 4. serving
     t0 = time.perf_counter()
-    cfg = LlamaConfig.llama2_7b()
     params = init_params(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     print(f"[serve] Llama-2-7B init on device: "
@@ -500,6 +824,8 @@ def main() -> int:
     del params32
     torch.cuda.empty_cache()
     profile_decode_burst(cfg, params)
+    del params
+    torch.cuda.empty_cache()
     phase("serving", t0)
 
     # 5. times at the serving path's shapes
@@ -512,21 +838,98 @@ def main() -> int:
     print(f"[times] K3 launches per served token: {launches_per_token:.3f}",
           flush=True)
     phase("times", t0)
-    phase("total", t_all)
+    return {"name": "ragged_paged_attention", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+            "replaces": "paddle_tpu/ops/ragged_attention.py:97",
+            "launches": launches, "max_abs_err": decode["max_abs_err"],
+            "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+            "bound_ms": decode["bound_ms"],
+            "bound_by": decode["bound_by"],
+            "library_ms": decode["library_ms"],
+            "ms_with_host": decode["ms_with_host"],
+            "shape": decode["shape"], "prefill": prefill,
+            "launches_per_token": launches_per_token,
+            "tokens_per_s": n_tok / seconds}
 
-    record = {"name": "ragged_paged_attention", "route": "cuda",
-              "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
-              "replaces": "paddle_tpu/ops/ragged_attention.py:97",
-              "launches": launches, "max_abs_err": decode["max_abs_err"],
-              "ms": decode["ms"], "plain_ms": decode["plain_ms"],
-              "bound_ms": decode["bound_ms"],
-              "bound_by": decode["bound_by"],
-              "library_ms": decode["library_ms"],
-              "ms_with_host": decode["ms_with_host"],
-              "shape": decode["shape"], "prefill": prefill,
-              "launches_per_token": launches_per_token,
-              "tokens_per_s": n_tok / seconds}
-    print(json.dumps({"kernels": [record]}))
+
+FLASH_REPLACES = {
+    "flash_fwd": "paddle_tpu/ops/flash_attention.py:316",
+    "flash_bwd_dq": "paddle_tpu/ops/flash_attention.py:201",
+    "flash_bwd_dkv": "paddle_tpu/ops/flash_attention.py:243",
+}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from paddle_tpu_torch.models.llama import LlamaConfig
+        from paddle_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the paddle_tpu_torch package is missing ({e}); "
+              "run from a checkout of the repository", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+
+    # 1. device
+    t0 = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda} | {card}",
+          flush=True)
+    phase("device", t0)
+
+    # 2. build
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    for name, r in report.items():
+        regs = [ln.strip() for ln in r["log"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        spills = [ln for ln in regs if " 0 bytes spill" not in ln
+                  and "spill" in ln]
+        print(f"[build] {name}: {r['seconds']:.2f} s, "
+              f"{len(regs)} ptxas lines, {len(spills)} with spills",
+              flush=True)
+        for ln in regs:
+            print(f"  ptxas: {ln}")
+    phase("build", t0)
+
+    cfg = LlamaConfig.llama2_7b()
+    # 3. K3 against its plain version
+    t0 = time.perf_counter()
+    kernel_cases()
+    phase("kernels", t0)
+    # 4-5. serving and K3's times
+    records = [serving_phases(cfg)]
+    # 6. K1 and K2 against their plain versions, and their times
+    t0 = time.perf_counter()
+    flash = flash_times(flash_cases())
+    phase("flash", t0)
+    # 7. training
+    t0 = time.perf_counter()
+    launches = training_phase(cfg)
+    phase("training", t0)
+    for name, rec in flash.items():
+        records.append({"name": name, "route": "cuda",
+                        "source": "paddle_tpu_torch/ops/csrc/"
+                                  "flash_attention.cu",
+                        "replaces": FLASH_REPLACES[name],
+                        "launches": launches[name], **rec})
+    phase("total", t_all)
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

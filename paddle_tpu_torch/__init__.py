@@ -2,8 +2,10 @@
 
 The package mirrors ``paddle_tpu``'s module layout (``models/llama.py``,
 ``models/llama_decode.py``, ``models/llama_paged.py``,
-``ops/ragged_attention.py``, ``inference/paging.py``,
-``inference/serving.py``) so each port sits beside its counterpart's path.
+``models/trainer.py``, ``ops/ragged_attention.py``,
+``ops/flash_attention.py``, ``optimizer/``, ``nn/clip.py``,
+``inference/paging.py``, ``inference/serving.py``) so each port sits beside
+its counterpart's path.
 It imports ``torch`` and never ``jax`` or ``paddle_tpu``; only the parity
 tests import both packages.
 

@@ -6,23 +6,35 @@ orientation, so converting weights between the packages needs no
 transposes (``params_from_jax``). ``jax.lax.scan`` over layers becomes a
 Python loop over views of the stacked tensors.
 
-Numerics follow the reference: RMSNorm, rope and softmax in f32, the
--1e30 causal mask, bf16 (or the config dtype) activations, f32 logits.
-Only the plain attention path is ported; the ``use_flash`` branch (the
-Pallas flash kernel, K1) waits for the training slice.
+Numerics follow the reference: RMSNorm, rope and softmax in f32, bf16
+(or the config dtype) activations, f32 logits. Attention defaults to the
+flash path (``ops/flash_attention.py``: kernels K1/K2 on CUDA tensors,
+their plain versions on CPU tensors), as the JAX package's ``_attention``
+does; ``use_flash=False`` keeps the plain -1e30-masked softmax.
+
+Training: ``llama_trunk`` applies the JAX package's remat schedules with
+``torch.utils.checkpoint`` (``remat_policy``), ``llama_loss`` is the
+masked-mean token cross-entropy, dense or sequence-chunked
+(``_chunked_ce``). Layer parameters may be stacked ``[L, ...]`` tensors
+or per-layer sequences of tensors (``layer_slice`` indexes either); the
+trainer uses the latter so that each layer's gradient is that layer's
+size. The MoE branch is not ported: a config with experts raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops.flash_attention import flash_attention_raw
 
 __all__ = ["LlamaConfig", "init_params", "params_from_jax", "llama_forward",
-           "split_layer_params", "resolve_head", "lm_head_logits"]
+           "llama_loss", "llama_trunk", "remat_policy", "split_layer_params",
+           "resolve_head", "lm_head_logits"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +50,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    num_experts: int = 0        # MoE is not ported: > 0 raises
 
     @property
     def head_dim(self):
@@ -169,10 +182,15 @@ def _expand_gqa(k, v, config):
     return k, v
 
 
-def _attention(q, k, v, config):
-    """Plain causal attention, q [B,T,H,hd], k/v [B,S,KV,hd]: f32 logits,
-    bottom-right -1e30 mask, f32 softmax rounded to q.dtype."""
+def _attention(q, k, v, config, use_flash=True, flash=flash_attention_raw):
+    """Causal attention, q [B,T,H,hd], k/v [B,S,KV,hd], bottom-right
+    aligned. ``use_flash``: the flash path through ``flash`` (by default
+    K1 forward, K2 backward on CUDA tensors; ``flash_attention_plain``
+    holds a layer to their plain versions); otherwise the plain path: f32
+    logits, -1e30 mask, f32 softmax rounded to q.dtype."""
     k, v = _expand_gqa(k, v, config)
+    if use_flash:
+        return flash(q, k, v, causal=True)
     scale = 1.0 / math.sqrt(config.head_dim)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
     T, S = logits.shape[-2], logits.shape[-1]
@@ -190,7 +208,8 @@ def split_layer_params(params):
 
 
 def layer_slice(layer_p, l):
-    """Layer ``l``'s parameters as views of the stacked tensors."""
+    """Layer ``l``'s parameters: views of stacked ``[L, ...]`` tensors, or
+    the ``l``-th entries of per-layer sequences."""
     return {k: v[l] for k, v in layer_p.items()}
 
 
@@ -225,26 +244,42 @@ def _mlp(x, lp, c):
     return x + (ff @ lp["w_down"])
 
 
-def _decoder_layer(x, lp, config, positions):
-    """One dense decoder block with causal attention over its own rows;
-    returns (x, k, v) — the rotated K and the V it attended."""
+def _decoder_layer(x, lp, config, positions, flash=flash_attention_raw):
+    """One dense decoder block with causal attention over its own rows
+    (through ``flash``, see ``_attention``); returns (x, k, v) — the
+    rotated K and the V it attended."""
     c = config
     B, T, _ = x.shape
     q, k, v = _qkv(_rmsnorm(x, lp["ln1"], c.rms_norm_eps), lp, c)
     q, k = _rope(q, k, positions, c.rope_theta, c.head_dim)
-    att = _attention(q, k, v, c)
+    att = _attention(q, k, v, c, flash=flash)
     x = x + (att.reshape(B, T, -1) @ lp["wo"])
     return _mlp(x, lp, c), k, v
+
+
+def _no_moe(config):
+    if config.num_experts:
+        raise NotImplementedError("the MoE branch of the Llama model is not "
+                                  "ported (ROADMAP Queue 1)")
+
+
+def _positions(B, T, device):
+    return torch.arange(T, dtype=torch.int32, device=device)[None, :] \
+        .expand(B, T)
+
+
+def _embed(other, tokens, config):
+    return other["embed_tokens"][tokens.long()].to(config.dtype)
 
 
 def _trunk(params, tokens, config: LlamaConfig):
     """Embedding + every decoder layer over tokens [B, T]: (final hidden
     [B, T, D], other params, per-layer K list, per-layer V list)."""
+    _no_moe(config)
     layer_p, other = split_layer_params(params)
     B, T = tokens.shape
-    x = other["embed_tokens"][tokens.long()].to(config.dtype)
-    positions = torch.arange(T, dtype=torch.int32,
-                             device=x.device)[None, :].expand(B, T)
+    x = _embed(other, tokens, config)
+    positions = _positions(B, T, x.device)
     ks, vs = [], []
     for l in range(config.num_hidden_layers):
         x, k, v = _decoder_layer(x, layer_slice(layer_p, l), config,
@@ -254,8 +289,122 @@ def _trunk(params, tokens, config: LlamaConfig):
     return x, other, ks, vs
 
 
-def llama_forward(params, tokens, config: LlamaConfig):
-    """tokens [B, T] int → f32 logits [B, T, V] (forward only; the loss,
-    remat and the flash kernel come with the training slice)."""
-    x, other, _, _ = _trunk(params, tokens, config)
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy():
+    """The selective remat policy of ``remat=True`` (JAX's
+    ``dots_saveable``): save the outputs of matrix products (aten mm,
+    addmm, bmm), recompute everything else in the backward — the flash
+    forward included, so K1 launches twice per layer per step. Returns a
+    ``context_fn`` for ``torch.utils.checkpoint.checkpoint``."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return functools.partial(create_selective_checkpoint_contexts,
+                             _save_dots)
+
+
+def llama_trunk(x, layer_params, config: LlamaConfig, positions=None,
+                remat=True):
+    """Every decoder layer over x [B, T, D]; ``layer_params`` holds
+    stacked ``[L, ...]`` tensors or per-layer sequences.
+
+    remat: False (keep every activation) | True (save matrix-product
+    outputs, recompute the rest: ``remat_policy``) | "full" (save only
+    each layer's input). ``"dots_noffn"`` is not ported. Outside autograd
+    (no grad enabled) there is nothing to rematerialise and every schedule
+    runs the layers directly."""
+    from torch.utils.checkpoint import checkpoint
+    _no_moe(config)
+    if remat not in (False, True, "full"):
+        raise NotImplementedError(f"remat={remat!r} is not ported (ROADMAP "
+                                  "Queue 1); use False, True or 'full'")
+    B, T, _ = x.shape
+    if positions is None:
+        positions = _positions(B, T, x.device)
+
+    def layer(x, lp):
+        return _decoder_layer(x, lp, config, positions)[0]
+
+    for l in range(config.num_hidden_layers):
+        lp = layer_slice(layer_params, l)
+        if not remat or not torch.is_grad_enabled():
+            x = layer(x, lp)
+        elif remat == "full":
+            x = checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x = checkpoint(layer, x, lp, use_reentrant=False,
+                           context_fn=remat_policy())
+    return x
+
+
+def llama_forward(params, tokens, config: LlamaConfig, remat=True):
+    """tokens [B, T] int → f32 logits [B, T, V] (logits only: the JAX
+    package also returns the MoE aux loss, which is not ported)."""
+    layer_p, other = split_layer_params(params)
+    x = _embed(other, tokens, config)
+    x = llama_trunk(x, layer_p, config, remat=remat)
     return lm_head_logits(x, other, config)
+
+
+def _token_nll(logits, labels):
+    """(sum of −log p(label), count) over labels >= 0; logits f32. Labels
+    below 0 are clamped before the gather (torch.gather raises on them
+    where JAX's take_along_axis wraps) and then masked out."""
+    logp = torch.log_softmax(logits, dim=-1)
+    lab = labels.long()
+    ll = logp.gather(-1, lab.clamp_min(0)[..., None])[..., 0]
+    mask = (lab >= 0).to(torch.float32)
+    return -torch.sum(ll * mask), torch.sum(mask)
+
+
+def _chunked_ce(x, head, labels, chunk):
+    """Sequence-chunked cross-entropy over the normed hidden x [B, T, D]:
+    one [B, chunk, V] block of f32 logits at a time, each chunk under
+    ``checkpoint`` so its logits are recomputed in the backward instead of
+    kept. Returns (sum_nll, n_tokens)."""
+    from torch.utils.checkpoint import checkpoint
+    B, T, D = x.shape
+    if T % chunk:
+        raise ValueError(f"loss_chunk {chunk} does not divide T={T}")
+
+    def one(xc, lc):
+        logits = torch.matmul(xc.to(torch.float32),
+                              head.to(xc.dtype).to(torch.float32))
+        return _token_nll(logits, lc)
+
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(T // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        if torch.is_grad_enabled():
+            a, b = checkpoint(one, x[:, sl], labels[:, sl],
+                              use_reentrant=False)
+        else:
+            a, b = one(x[:, sl], labels[:, sl])
+        nll, n = nll + a, n + b
+    return nll, n
+
+
+def llama_loss(params, tokens, labels, config: LlamaConfig, remat=True,
+               loss_chunk=None):
+    """Masked-mean token cross-entropy (labels < 0 are ignored) of tokens
+    [B, T] against labels [B, T], an f32 scalar. ``loss_chunk``: sequence
+    chunk of the cross-entropy (None: the dense [B, T, V] logits)."""
+    _no_moe(config)
+    if loss_chunk:
+        layer_p, other = split_layer_params(params)
+        x = llama_trunk(_embed(other, tokens, config), layer_p, config,
+                        remat=remat)
+        x = _rmsnorm(x, other["norm"], config.rms_norm_eps)
+        nll, n = _chunked_ce(x, resolve_head(other), labels, loss_chunk)
+    else:
+        logits = llama_forward(params, tokens, config, remat)
+        nll, n = _token_nll(logits, labels)
+    return nll / torch.clamp_min(n, 1.0)

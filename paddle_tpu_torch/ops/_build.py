@@ -36,6 +36,15 @@ SIGNATURES = {
                        + [ctypes.c_float, _P], _I),
         "rpa_error_string": ([_I], ctypes.c_char_p),
     },
+    "flash_attention": {
+        # pointers, dtype, B, L, S, H, D, causal, scale, strides, stream
+        "flash_fwd_launch": ([_P] * 5 + [_I] * 7 + [ctypes.c_float, _P, _P],
+                             _I),
+        "flash_bwd_dq_launch": ([_P] * 7 + [_I] * 7
+                                + [ctypes.c_float, _P, _P], _I),
+        "flash_bwd_dkv_launch": ([_P] * 8 + [_I] * 7
+                                 + [ctypes.c_float, _P, _P], _I),
+    },
 }
 
 
@@ -95,12 +104,21 @@ def build_all(names=None) -> dict:
     already built."""
     names = list(names or sorted(p.stem for p in CSRC.glob("*.cu")))
     t0 = time.perf_counter()
-    started = {n: _start(n) for n in names}
-    report = {}
-    for n, s in started.items():
-        log = "" if s is None else _finish(n, s)
-        report[n] = {"seconds": time.perf_counter() - t0, "log": log}
-    return report
+    started = {}
+    try:
+        for n in names:
+            started[n] = _start(n)
+        report = {}
+        for n, s in started.items():
+            log = "" if s is None else _finish(n, s)
+            report[n] = {"seconds": time.perf_counter() - t0, "log": log}
+        return report
+    finally:       # a failed build leaves no other nvcc running
+        for s in started.values():
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()
+                os.unlink(s[1])
 
 
 @functools.cache

@@ -1,0 +1,675 @@
+// Flash attention forward and backward for Hopper (sm_90a) — kernels K1
+// and K2 of the port.
+//
+// Replaces (paddle_tpu/ops/flash_attention.py, the Pallas TPU kernels
+// launched by `pl.pallas_call`):
+//   flash_fwd     <- `_flash_fwd_impl`  (kernel :316, call :358)
+//   flash_bwd_dq  <- `_flash_bwd_impl`, `dq_kernel`  (:201, call :222)
+//   flash_bwd_dkv <- `_flash_bwd_impl`, `dkv_kernel` (:243, call :270)
+// They compute the same functions, not a block-by-block carry-over:
+//   forward   out = softmax(q·kᵀ·scale) · v over the visible columns, and
+//             lse = m + log(l) per row, in f32 (row r of L sees column c
+//             of S when c <= r + S − L under `causal`: the bottom-right
+//             convention of `_block_run` / `_causal_mask_scores`); a row
+//             that sees no column gets out = 0 and lse = −inf;
+//   backward  p = exp(s − lse) (lse = −inf read as 0), dp = dout·vᵀ,
+//             ds = p·(dp − delta) with delta = rowsum(dout·out) computed
+//             by the caller, dq = ds·k·scale, dk = dsᵀ·q·scale,
+//             dv = pᵀ·dout.
+//
+// What bounds them on an H100: operations. At B=1, L=S=2048, H=32, D=128
+// the causal forward does 4·H·D·L(L+1)/2 ≈ 34.4 GFLOP on 67 MB of q, k,
+// v and out (≈ 0.035 ms at 989 TFLOP/s against ≈ 0.020 ms at 3.35 TB/s),
+// and the backward ≈ 2.5× the forward's products on ≈ 1.7× its bytes.
+// So the design puts the products on the tensor cores the simple way:
+//   * mma.sync m16n8k16 bf16 tiles with an f32 accumulator (no wgmma,
+//     TMA or warp specialisation yet); the score tile stays in registers
+//     and is fed to the second product as its A operand without a trip
+//     through shared memory (FlashAttention-2's register reuse);
+//   * one block of 4 warps per (batch, head, tile of 64 rows), each warp
+//     owning 16 rows, with an online softmax (forward) or a running dq,
+//     dk/dv sum (backward) in registers; the TPU's sequential
+//     "arbitrary" grid axis becomes a loop inside the block;
+//   * the backward is split as in FlashAttention-2: flash_bwd_dq walks kv
+//     tiles for a q tile, flash_bwd_dkv walks q tiles for a kv tile, so
+//     every block owns its outputs and no atomics are needed;
+//   * causal tiles that `_block_run` would skip are never loaded; rows
+//     past L and columns past S are zero-filled in shared memory and
+//     masked, so any L and S work (no multiple-of-128 gate, no padding);
+//   * q, k, v, dout are read in their [B, L, H, D] layout through element
+//     strides with 16-byte loads: no transposing copy.
+// The f32 instances do the same tiling with their products in f32 on the
+// CUDA cores (never TF32): they exist for the f32 reference runs.
+//
+// Numerics against the plain version (ops/flash_attention.py): the plain
+// version keeps p in f32 for p·v; the bf16 kernels round p (and ds) to
+// bf16 as the A operand of the tensor-core product, a relative error of
+// at most 2^-9 per term, and each side rounds its outputs to bf16. The
+// stated tolerances are in ops/flash_attention.py.
+//
+// C interface (built by nvcc, loaded with ctypes; no PyTorch headers):
+// each *_launch takes device pointers, sizes, the f32 scale, a host array
+// of element strides (batch, seq, head) for q, k, v, out, dout, dq, dk,
+// dv — 24 values, unused ones 0 — and the CUDA stream; it launches on
+// that stream, allocates nothing, and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = 64;     // query rows per block: forward and dq (16 a warp)
+constexpr int kBK = 64;     // key rows per tile: forward and dq; per block: dkv
+constexpr int kBQdkv = 32;  // query rows per tile in dkv
+
+struct Params {
+  int B, L, S, H, causal;
+  float scale;
+  long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3];
+};
+
+template <typename T>
+__host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<T, bf16>::value;
+}
+
+// Shared-memory row stride in elements: 16 bytes of padding per row keeps
+// the fragment loads of one warp on distinct banks and rows 16-byte aligned.
+template <typename T, int D>
+__host__ __device__ constexpr int row_stride() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Rows [r0, r0 + ROWS) of a [rows, D] slice whose row stride is s_row
+// elements into shared memory; rows at or past n_rows are zero-filled.
+// Every row start is 16-byte aligned (checked by the wrapper).
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile(T* sm, const T* g, long long s_row,
+                                          int r0, int n_rows) {
+  constexpr int EPV = 16 / static_cast<int>(sizeof(T));
+  constexpr int VPR = D / EPV;
+  constexpr int SR = row_stride<T, D>();
+  for (int i = threadIdx.x; i < ROWS * VPR; i += kThreads) {
+    const int r = i / VPR;
+    const int c = (i % VPR) * EPV;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n_rows)
+      val = *reinterpret_cast<const uint4*>(g + (long long)(r0 + r) * s_row +
+                                            c);
+    *reinterpret_cast<uint4*>(sm + r * SR + c) = val;
+  }
+}
+
+// n f32 values of a row vector from index r0 (zero past n_rows).
+__device__ __forceinline__ void load_vec(float* sm, const float* g, int r0,
+                                         int n, int n_rows) {
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    sm[i] = r0 + i < n_rows ? g[r0 + i] : 0.f;
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[nb] += A·Bᵀ for one warp: A is the warp's 16 rows [16, D] and B a
+// tile [NB·8, D], both row-major in shared memory with row stride SR.
+// acc is in the mma C layout: lane (g = lane/4, t = lane%4) holds rows
+// g and g+8, columns nb·8 + 2t and +1, as acc[nb][0..1] and [2..3].
+template <typename T, int D, int NB>
+__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const T* A,
+                                        const T* Bm) {
+  constexpr int SR = row_stride<T, D>();
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (is_bf16<T>()) {
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const bf16* ap = A + g * SR + ks * 16 + 2 * t;
+      const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * SR), ld32(ap + 8),
+                             ld32(ap + 8 * SR + 8)};
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const bf16* bp = Bm + (nb * 8 + g) * SR + ks * 16 + 2 * t;
+        const uint32_t b[2] = {ld32(bp), ld32(bp + 8)};
+        mma16816(acc[nb], a, b);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* ar = A + (g + (i >> 1) * 8) * SR;
+        const float* br = Bm + (nb * 8 + 2 * t + (i & 1)) * SR;
+        float s = acc[nb][i];
+#pragma unroll 4
+        for (int d = 0; d < D; ++d) s = fmaf(ar[d], br[d], s);
+        acc[nb][i] = s;
+      }
+    }
+  }
+}
+
+// acc[nd] += P·Bm for one warp: P [16, NBK·8] is held in registers in the
+// mma C layout (as mma_abt leaves it), Bm [NBK·8, D] row-major in shared
+// memory. bf16: P is rounded to bf16 and used as the A operand directly.
+// f32: P goes through the warp's scratch [16, NBK·8 + 4] in shared memory.
+template <typename T, int D, int NBK>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4],
+                                       const float (&p)[NBK][4], const T* Bm,
+                                       float* scratch) {
+  constexpr int SR = row_stride<T, D>();
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (is_bf16<T>()) {
+    static_assert(NBK % 2 == 0, "k slices of 16");
+#pragma unroll
+    for (int kk = 0; kk < NBK / 2; ++kk) {
+      const uint32_t a[4] = {pack2f(p[2 * kk][0], p[2 * kk][1]),
+                             pack2f(p[2 * kk][2], p[2 * kk][3]),
+                             pack2f(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                             pack2f(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const bf16* bp = Bm + (kk * 16 + 2 * t) * SR + nd * 8 + g;
+        const uint32_t b[2] = {pack2(bp[0], bp[SR]),
+                               pack2(bp[8 * SR], bp[9 * SR])};
+        mma16816(acc[nd], a, b);
+      }
+    }
+  } else {
+    constexpr int PS = NBK * 8 + 4;
+#pragma unroll
+    for (int nb = 0; nb < NBK; ++nb) {
+      scratch[g * PS + nb * 8 + 2 * t] = p[nb][0];
+      scratch[g * PS + nb * 8 + 2 * t + 1] = p[nb][1];
+      scratch[(g + 8) * PS + nb * 8 + 2 * t] = p[nb][2];
+      scratch[(g + 8) * PS + nb * 8 + 2 * t + 1] = p[nb][3];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* pr = scratch + (g + (i >> 1) * 8) * PS;
+        const float* bc = Bm + nd * 8 + 2 * t + (i & 1);
+        float s = acc[nd][i];
+#pragma unroll 4
+        for (int j = 0; j < NBK * 8; ++j) s = fmaf(pr[j], bc[j * SR], s);
+        acc[nd][i] = s;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Columns of a row that `causal` leaves visible: [0, end).
+__device__ __forceinline__ int visible_end(int row, const Params& p) {
+  return p.causal ? min(p.S, row + p.S - p.L + 1) : p.S;
+}
+
+// ---------------------------------------------------------------- forward
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, const Params p) {
+  constexpr int SR = row_stride<T, D>();
+  constexpr int NB = kBK / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + kBQ * SR;
+  T* sV = sK + kBK * SR;
+  float* scratch = reinterpret_cast<float*>(sV + kBK * SR);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const T* qb = q + b * p.q[0] + h * p.q[2];
+  const T* kb = k + b * p.k[0] + h * p.k[2];
+  const T* vb = v + b * p.v[0] + h * p.v[2];
+
+  load_tile<T, D, kBQ>(sQ, qb, p.q[1], q0, p.L);
+  const int kv_end = visible_end(min(q0 + kBQ, p.L) - 1, p);
+  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int ends[2] = {visible_end(rows[0], p), visible_end(rows[1], p)};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    __syncthreads();  // the previous tile is consumed (and sQ is written)
+    load_tile<T, D, kBK>(sK, kb, p.k[1], kt * kBK, p.S);
+    load_tile<T, D, kBK>(sV, vb, p.v[1], kt * kBK, p.S);
+    __syncthreads();
+    float s[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
+    mma_abt<T, D, NB>(s, sQ + warp * 16 * SR, sK);
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = kt * kBK + nb * 8 + 2 * t + (i & 1);
+        const float x = col < ends[i >> 1] ? s[nb][i] * p.scale : -INFINITY;
+        s[nb][i] = x;
+        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      }
+    float alpha[2], safe[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with no visible column yet keeps m = -inf; exp against 0
+      // leaves p and alpha exactly 0 instead of -inf - -inf = nan
+      safe[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = expf(m[r] - safe[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = expf(s[nb][i] - safe[i >> 1]);
+        s[nb][i] = e;
+        sum[i >> 1] += e;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nd][i] *= alpha[i >> 1];
+    mma_pv<T, D, NB>(acc, s, sV, scratch + warp * 16 * (NB * 8 + 4));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  T* ob = out + b * p.o[0] + h * p.o[2];
+  float* lb = lse + ((long long)b * p.H + h) * p.L;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= p.L) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    T* orow = ob + rows[r] * p.o[1];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      store2(orow + nd * 8 + 2 * t, acc[nd][2 * r] / denom,
+             acc[nd][2 * r + 1] / denom);
+    if (t == 0) lb[rows[r]] = m[r] + logf(denom);
+  }
+}
+
+// ------------------------------------------------------------ backward dq
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const Params p) {
+  constexpr int SR = row_stride<T, D>();
+  constexpr int NB = kBK / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sDO = sQ + kBQ * SR;
+  T* sK = sDO + kBQ * SR;
+  T* sV = sK + kBK * SR;
+  float* sLse = reinterpret_cast<float*>(sV + kBK * SR);
+  float* sDelta = sLse + kBQ;
+  float* scratch = sDelta + kBQ;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const T* kb = k + b * p.k[0] + h * p.k[2];
+  const T* vb = v + b * p.v[0] + h * p.v[2];
+  const long long vrow = ((long long)b * p.H + h) * p.L;
+
+  load_tile<T, D, kBQ>(sQ, q + b * p.q[0] + h * p.q[2], p.q[1], q0, p.L);
+  load_tile<T, D, kBQ>(sDO, dout + b * p.dout[0] + h * p.dout[2], p.dout[1],
+                       q0, p.L);
+  load_vec(sLse, lse + vrow, q0, kBQ, p.L);
+  load_vec(sDelta, delta + vrow, q0, kBQ, p.L);
+  const int kv_end = visible_end(min(q0 + kBQ, p.L) - 1, p);
+  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  const int lrow[2] = {warp * 16 + g, warp * 16 + g + 8};
+  const int ends[2] = {visible_end(q0 + lrow[0], p),
+                       visible_end(q0 + lrow[1], p)};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    __syncthreads();
+    load_tile<T, D, kBK>(sK, kb, p.k[1], kt * kBK, p.S);
+    load_tile<T, D, kBK>(sV, vb, p.v[1], kt * kBK, p.S);
+    __syncthreads();
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nb][i] = dp[nb][i] = 0.f;
+    mma_abt<T, D, NB>(s, sQ + warp * 16 * SR, sK);
+    mma_abt<T, D, NB>(dp, sDO + warp * 16 * SR, sV);
+    float safe[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float x = sLse[lrow[r]];
+      safe[r] = x == -INFINITY ? 0.f : x;
+      dl[r] = sDelta[lrow[r]];
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = kt * kBK + nb * 8 + 2 * t + (i & 1);
+        const float pr = col < ends[i >> 1]
+                             ? expf(s[nb][i] * p.scale - safe[i >> 1])
+                             : 0.f;
+        s[nb][i] = pr * (dp[nb][i] - dl[i >> 1]);  // ds
+      }
+    mma_pv<T, D, NB>(acc, s, sK, scratch + warp * 16 * (NB * 8 + 4));
+  }
+
+  T* db = dq + b * p.dq[0] + h * p.dq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + lrow[r];
+    if (row >= p.L) continue;
+    T* drow = db + row * p.dq[1];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      store2(drow + nd * 8 + 2 * t, acc[nd][2 * r] * p.scale,
+             acc[nd][2 * r + 1] * p.scale);
+  }
+}
+
+// ----------------------------------------------------------- backward dkv
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, const Params p) {
+  constexpr int SR = row_stride<T, D>();
+  constexpr int NB = kBQdkv / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + kBK * SR;
+  T* sQ = sV + kBK * SR;
+  T* sDO = sQ + kBQdkv * SR;
+  float* sLse = reinterpret_cast<float*>(sDO + kBQdkv * SR);
+  float* sDelta = sLse + kBQdkv;
+  float* scratch = sDelta + kBQdkv;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBK;
+  const T* qb = q + b * p.q[0] + h * p.q[2];
+  const T* db = dout + b * p.dout[0] + h * p.dout[2];
+  const long long vrow = ((long long)b * p.H + h) * p.L;
+
+  load_tile<T, D, kBK>(sK, k + b * p.k[0] + h * p.k[2], p.k[1], k0, p.S);
+  load_tile<T, D, kBK>(sV, v + b * p.v[0] + h * p.v[2], p.v[1], k0, p.S);
+  // first query row that sees key k0 under `causal`: r >= k0 - (S - L)
+  const int q_first = p.causal ? max(0, k0 - (p.S - p.L)) : 0;
+  const int qt0 = q_first / kBQdkv;
+  const int n_qt = (p.L + kBQdkv - 1) / kBQdkv;
+  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_dk[nd][i] = acc_dv[nd][i] = 0.f;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int r0 = qt * kBQdkv;
+    __syncthreads();
+    load_tile<T, D, kBQdkv>(sQ, qb, p.q[1], r0, p.L);
+    load_tile<T, D, kBQdkv>(sDO, db, p.dout[1], r0, p.L);
+    load_vec(sLse, lse + vrow, r0, kBQdkv, p.L);
+    load_vec(sDelta, delta + vrow, r0, kBQdkv, p.L);
+    __syncthreads();
+    float st[NB][4], dpt[NB][4];  // sᵀ, dpᵀ: rows = keys, columns = queries
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[nb][i] = dpt[nb][i] = 0.f;
+    mma_abt<T, D, NB>(st, sK + warp * 16 * SR, sQ);
+    mma_abt<T, D, NB>(dpt, sV + warp * 16 * SR, sDO);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = nb * 8 + 2 * t + (i & 1);
+        const int row = r0 + c;
+        const int key = keys[i >> 1];
+        const bool ok = row < p.L && key < visible_end(row, p);
+        const float x = sLse[c];
+        const float safe = x == -INFINITY ? 0.f : x;
+        const float pr = ok ? expf(st[nb][i] * p.scale - safe) : 0.f;
+        st[nb][i] = pr;
+        dpt[nb][i] = pr * (dpt[nb][i] - sDelta[c]);  // dsᵀ
+      }
+    float* ws = scratch + warp * 16 * (NB * 8 + 4);
+    mma_pv<T, D, NB>(acc_dv, st, sDO, ws);
+    mma_pv<T, D, NB>(acc_dk, dpt, sQ, ws);
+  }
+
+  T* kbo = dk + b * p.dk[0] + h * p.dk[2];
+  T* vbo = dv + b * p.dv[0] + h * p.dv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= p.S) continue;
+    T* krow = kbo + keys[r] * p.dk[1];
+    T* vrw = vbo + keys[r] * p.dv[1];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      store2(krow + nd * 8 + 2 * t, acc_dk[nd][2 * r] * p.scale,
+             acc_dk[nd][2 * r + 1] * p.scale);
+      store2(vrw + nd * 8 + 2 * t, acc_dv[nd][2 * r], acc_dv[nd][2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- launchers
+template <typename T, int D>
+constexpr size_t smem_fwd() {
+  return (kBQ + 2 * kBK) * row_stride<T, D>() * sizeof(T) +
+         (is_bf16<T>() ? 0 : kWarps * 16 * (kBK + 4) * sizeof(float));
+}
+template <typename T, int D>
+constexpr size_t smem_dq() {
+  return (2 * kBQ + 2 * kBK) * row_stride<T, D>() * sizeof(T) +
+         2 * kBQ * sizeof(float) +
+         (is_bf16<T>() ? 0 : kWarps * 16 * (kBK + 4) * sizeof(float));
+}
+template <typename T, int D>
+constexpr size_t smem_dkv() {
+  return (2 * kBK + 2 * kBQdkv) * row_stride<T, D>() * sizeof(T) +
+         2 * kBQdkv * sizeof(float) +
+         (is_bf16<T>() ? 0 : kWarps * 16 * (kBQdkv + 4) * sizeof(float));
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int D>
+int fwd(const Params& p, const void* q, const void* k, const void* v,
+        void* out, void* lse, cudaStream_t s) {
+  constexpr size_t bytes = smem_fwd<T, D>();
+  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.L + kBQ - 1) / kBQ, p.H, p.B);
+  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int bwd_dq(const Params& p, const void* q, const void* k, const void* v,
+           const void* dout, const void* lse, const void* delta, void* dq,
+           cudaStream_t s) {
+  constexpr size_t bytes = smem_dq<T, D>();
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.L + kBQ - 1) / kBQ, p.H, p.B);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int bwd_dkv(const Params& p, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta, void* dk,
+            void* dv, cudaStream_t s) {
+  constexpr size_t bytes = smem_dkv<T, D>();
+  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.S + kBK - 1) / kBK, p.H, p.B);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Validates sizes and fills Params; returns 0 or a cudaError_t code.
+int make_params(Params* p, int B, int L, int S, int H, int D, int causal,
+                float scale, const long long* strides) {
+  if (B <= 0 || L <= 0 || S <= 0 || H <= 0 || (D != 64 && D != 128) ||
+      B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p->B = B; p->L = L; p->S = S; p->H = H; p->causal = causal != 0;
+  p->scale = scale;
+  long long* dst[8] = {p->q, p->k, p->v, p->o, p->dout, p->dq, p->dk, p->dv};
+  for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (every tensor but lse/delta shares it;
+// lse and delta are f32 [B, H, L] contiguous). Returns a cudaError_t code.
+int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
+                     void* lse, int dtype, int B, int L, int S, int H, int D,
+                     int causal, float scale, const long long* strides,
+                     void* stream) {
+  Params p;
+  const int err = make_params(&p, B, L, S, H, D, causal, scale, strides);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return D == 64 ? fwd<bf16, 64>(p, q, k, v, out, lse, s)
+                   : fwd<bf16, 128>(p, q, k, v, out, lse, s);
+  if (dtype == 0)
+    return D == 64 ? fwd<float, 64>(p, q, k, v, out, lse, s)
+                   : fwd<float, 128>(p, q, k, v, out, lse, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dq, int dtype, int B, int L, int S, int H,
+                        int D, int causal, float scale,
+                        const long long* strides, void* stream) {
+  Params p;
+  const int err = make_params(&p, B, L, S, H, D, causal, scale, strides);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return D == 64 ? bwd_dq<bf16, 64>(p, q, k, v, dout, lse, delta, dq, s)
+                   : bwd_dq<bf16, 128>(p, q, k, v, dout, lse, delta, dq, s);
+  if (dtype == 0)
+    return D == 64 ? bwd_dq<float, 64>(p, q, k, v, dout, lse, delta, dq, s)
+                   : bwd_dq<float, 128>(p, q, k, v, dout, lse, delta, dq, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse,
+                         const void* delta, void* dk, void* dv, int dtype,
+                         int B, int L, int S, int H, int D, int causal,
+                         float scale, const long long* strides,
+                         void* stream) {
+  Params p;
+  const int err = make_params(&p, B, L, S, H, D, causal, scale, strides);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return D == 64
+               ? bwd_dkv<bf16, 64>(p, q, k, v, dout, lse, delta, dk, dv, s)
+               : bwd_dkv<bf16, 128>(p, q, k, v, dout, lse, delta, dk, dv, s);
+  if (dtype == 0)
+    return D == 64
+               ? bwd_dkv<float, 64>(p, q, k, v, dout, lse, delta, dk, dv, s)
+               : bwd_dkv<float, 128>(p, q, k, v, dout, lse, delta, dk, dv,
+                                     s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

@@ -13,18 +13,33 @@ the repository. Phases, each failing the run when its check fails:
 3. kernels  — the ragged paged-attention kernel (K3) against its plain
               PyTorch version on the card: decode, ragged prefill, suffix
               and q_len=0 rows, groups 1 and 4, f32 and bf16 pools, dead
-              pool rows and the scratch page filled with NaN;
+              pool rows and the scratch page filled with NaN; then the
+              quantized kernel (K4) the same way over int8 and fp8 pools
+              (head dims 128, 64 and 16), dead payload rows poisoned and
+              dead scale rows NaN, each output element within its own
+              bound (``ragged_attention.tolerance``);
 4. serving  — greedy Llama-2-7B (full width, random weights from a seed,
               bf16) through ContinuousBatcher's ragged path: 8 requests, 4
               slots, admissions mid-flight. Checks K3's launch count, the
               drained pool, and every emitted token against a
               teacher-forced dense forward of the same weights (bf16, and
               again with the whole engine in f32; the dense forward runs
-              the flash kernel K1); profiles one decode burst;
-5. times    — K3 at the serving path's decode and prefill shapes beside
-              its byte bound, its plain version and
-              scaled_dot_product_attention (a yardstick the port never
-              calls); CUDA events, median of 30 runs after warm-up;
+              the flash kernel K1); profiles one decode burst. Then the
+              same 8 requests with int8 and then fp8 pages, sized by
+              the bf16 pool's byte budget (``pool_hbm_bytes``): K4's
+              launch count (K3's is 0), the drained pool, every token
+              against a teacher-forced dense forward whose K/V pass
+              through the same codec (coarse), and the pages the budget
+              buys; then the engine in f32 with int8 and fp8 pages, its
+              pool read back and held against a dense f32 forward that
+              attends over it: every token within 1e-3 of its best logit,
+              every pool row and scale at the codec of the forward's own
+              K/V (``f32_pool_check``);
+5. times    — K3 and K4 (int8 and fp8) at the serving path's decode and
+              prefill shapes beside their byte bounds, their plain
+              versions and scaled_dot_product_attention (a yardstick the
+              port never calls; for K4 over K/V dequantized beforehand);
+              CUDA events, median of 30 runs after warm-up;
 6. flash    — the flash kernels (K1 forward; K2 as flash_bwd_dq and
               flash_bwd_dkv) against their plain versions: f32 and bf16,
               causal and not, at the training shape (B=1, L=S=2048, H=32,
@@ -171,11 +186,107 @@ def kernel_cases(device="cuda"):
     return results
 
 
+def quantize_case(args, mode):
+    """``make_case``'s inputs with both pools quantized per (row, kv head)
+    by the port's codec: (q, k payload, v payload, block table, q_lens,
+    kv_lens, k scales, v scales). Every dead row (NaN in ``make_case``)
+    gets a poisoned payload (fp8: NaN, 0x7F; int8: -128, off the grid)
+    and a NaN scale."""
+    import torch
+    from paddle_tpu_torch.quant.codec import quantize_lastdim
+    q, kp, vp, bt, ql, kl = args
+    pools = []
+    for pool in (kp, vp):
+        dead = torch.isnan(pool).any(-1)                  # [pages, ps, KV]
+        pay, sc = quantize_lastdim(torch.nan_to_num(pool.float()), mode)
+        pay.view(torch.uint8)[dead] = 0x7F if mode == "fp8" else 0x80
+        sc[dead] = float("nan")
+        pools.append((pay, sc))
+    (kq, ks), (vq, vs) = pools
+    return q, kq, vq, bt, ql, kl, ks, vs
+
+
+def k4_compare(qargs, ps):
+    """K4 and its plain version on one quantized case: (kernel output,
+    plain output, max_abs_err, worst share of the bound ``ra.tolerance``:
+    per row in f32, per element in bf16)."""
+    import torch
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    q, kq, vq, bt, ql, kl, ks, vs = qargs
+    out = ra.ragged_paged_attention(q, kq, vq, bt, ql, kl, page_size=ps,
+                                    k_scale=ks, v_scale=vs)
+    ref = ra.ragged_paged_attention_reference(q, kq, vq, bt, ql, kl,
+                                              page_size=ps, k_scale=ks,
+                                              v_scale=vs)
+    diff = (out.float() - ref.float()).abs()
+    bound = ra.tolerance(q, kq, vq, bt, ql, kl, page_size=ps, k_scale=ks,
+                         v_scale=vs)
+    share = float(torch.where(diff > 0, diff / bound,
+                              torch.zeros_like(diff)).max())
+    return out, ref, float(diff.max()), share
+
+
+def k4_check(name, qargs, ps):
+    """K4 against its plain version on one quantized case: finite outputs,
+    q_len = 0 slots all zeros, and every output element within its bound.
+    Returns (max_abs_err, worst share of the bound)."""
+    import torch
+    out, ref, err, share = k4_compare(qargs, ps)
+    check(bool(torch.isfinite(out).all()), f"{name}: kernel output not "
+          "finite")
+    check(bool(torch.isfinite(ref).all()), f"{name}: plain output not finite")
+    ql = qargs[4]
+    for b in torch.nonzero(ql == 0).flatten().tolist():
+        check(bool((out[b] == 0).all()), f"{name}: q_len=0 slot {b} not "
+              "zeros")
+    print(f"  K4-vs-plain {name:<40} max_abs_err={err:.3e} "
+          f"share of the bound {share:.3f}", flush=True)
+    check(share <= 1.0, f"{name}: |kernel − plain| reaches {share:.3f} of "
+          f"its bound (max_abs_err {err})")
+    return err, share
+
+
+def quant_kernel_cases(device="cuda"):
+    """K4 against its plain version: int8 and fp8 payloads, f32 and bf16
+    models, decode, ragged prefill, suffix and q_len=0 rows, groups 1 and
+    4, at the serving shape's head dim 128 and page size 16, then head
+    dims 64 and 16. Returns the worst share of the bound."""
+    import torch
+    rng = np.random.default_rng(SEED + 7)
+    ps, max_pages = 16, 64
+    worst = 0.0
+    shapes = [(128, 1, 32, 32), (128, 4, 32, 8), (64, 2, 8, 4),
+              (16, 2, 4, 2)]
+    for hd, groups, H, KV in shapes:
+        for mode in ("int8", "fp8"):
+            for dtype in (torch.float32, torch.bfloat16):
+                kinds = {"decode": ([1, 1, 1, 1], rng.integers(1, 1025, 4)),
+                         "prefill": ([512, 300, 0, 37], [512, 300, 77, 37])}
+                sq = rng.integers(2, 65, 4)
+                kinds["suffix"] = (sq, sq + rng.integers(1, 900, 4))
+                if hd != 128:
+                    kinds.pop("suffix")
+                for kind, (ql, kl) in kinds.items():
+                    args = make_case(rng, ql, kl, H, KV, hd, ps, max_pages,
+                                     dtype, device)
+                    name = (f"{kind} {mode} {str(dtype)[6:]} hd={hd} "
+                            f"groups={groups}")
+                    _, share = k4_check(name, quantize_case(args, mode), ps)
+                    worst = max(worst, share)
+    print(f"  K4: worst share of the bound {worst:.3f}", flush=True)
+    return worst
+
+
 # --------------------------------------------------------------- phase 4
-def serve(cfg, params, device="cuda"):
-    """Serve 8 requests; returns (engine, requests, results, seconds,
-    mid-flight admission bursts, K3 launches, per-step host seconds by
-    kind)."""
+SERVE_GEOMETRY = dict(max_batch=4, max_len=1024, prompt_buckets=(512,),
+                      burst=8, page_size=16)
+
+
+def serve(cfg, params, device="cuda", kv_dtype=None, pool_hbm_bytes=None):
+    """Serve 8 requests (with ``kv_dtype`` pages, in a pool of
+    ``pool_hbm_bytes`` when given); returns (engine, requests, results,
+    seconds, mid-flight admission bursts, launches of the path's kernel —
+    K3, or K4 with kv_dtype —, per-step host seconds by kind)."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
     from paddle_tpu_torch.ops import ragged_attention as ra
@@ -184,9 +295,9 @@ def serve(cfg, params, device="cuda"):
     news = rng.integers(16, 65, 8)
     reqs = [(rng.integers(1, cfg.vocab_size, int(n)).tolist(), int(m))
             for n, m in zip(lens, news)]
-    engine = ContinuousBatcher(cfg, params, max_batch=4, max_len=1024,
-                               prompt_buckets=(512,), burst=8, page_size=16,
-                               device=device)
+    engine = ContinuousBatcher(cfg, params, kv_dtype=kv_dtype,
+                               pool_hbm_bytes=pool_hbm_bytes, device=device,
+                               **SERVE_GEOMETRY)
     rids = [engine.add_request(p, m) for p, m in reqs]
     ra.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -204,12 +315,13 @@ def serve(cfg, params, device="cuda"):
         midflight += bool(busy and had_prefill)
         finished.update(engine.take_finished())
     seconds = time.perf_counter() - t0
-    launches = ra.LAUNCHES["ragged_paged_attention"]
+    launches = ra.LAUNCHES["ragged_paged_attention_quant" if kv_dtype
+                           else "ragged_paged_attention"]
     return engine, reqs, [finished.get(r) for r in rids], seconds, \
         midflight, launches, step_s
 
 
-def first_token_logits(cfg, params, prompts, device="cuda"):
+def first_token_logits(cfg, params, prompts, device="cuda", kv_dtype=None):
     """Last-position logits of the serving path's prefill phase (paged
     pool, ragged kernel) for up to 4 prompts in one launch per layer."""
     import torch
@@ -217,7 +329,8 @@ def first_token_logits(cfg, params, prompts, device="cuda"):
                                                      init_paged_kv_cache)
     ps, width, max_pages = 16, 512, 64
     B = 4
-    cache = init_paged_kv_cache(cfg, 1 + B * width // ps, ps, device=device)
+    cache = init_paged_kv_cache(cfg, 1 + B * width // ps, ps,
+                                kv_dtype=kv_dtype, device=device)
     bt = torch.zeros((B, max_pages), dtype=torch.int32)
     toks = torch.zeros((B, width), dtype=torch.int32)
     lens = torch.zeros(B, dtype=torch.int32)
@@ -229,13 +342,39 @@ def first_token_logits(cfg, params, prompts, device="cuda"):
     with torch.no_grad():
         logits, _ = _ragged_prefill_phase(
             params, cache, bt.to(device), toks.to(device), lens.to(device),
-            torch.zeros(B, dtype=torch.int32, device=device), cfg)
+            torch.zeros(B, dtype=torch.int32, device=device), cfg,
+            kv_dtype=kv_dtype)
     return logits[:len(prompts)]
 
 
+def codec_forward(params, tokens, cfg, kv_dtype):
+    """``llama_forward`` (flash attention, K1 on the card) with every
+    layer's K and V passed through the page codec — quantized per (row,
+    kv head) and dequantized to the model dtype — before attention: the
+    function the quantized serving path computes, in one dense pass."""
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_raw
+    from paddle_tpu_torch.quant.codec import (dequantize_lastdim,
+                                              quantize_lastdim)
+
+    def attend(q, k, v, causal):
+        k = dequantize_lastdim(*quantize_lastdim(k, kv_dtype), k.dtype)
+        v = dequantize_lastdim(*quantize_lastdim(v, kv_dtype), v.dtype)
+        return flash_attention_raw(q, k, v, causal=causal)
+
+    layer_p, other = L.split_layer_params(params)
+    x = L._embed(other, tokens, cfg)
+    pos = L._positions(*tokens.shape, x.device)
+    for l in range(cfg.num_hidden_layers):
+        x = L._decoder_layer(x, L.layer_slice(layer_p, l), cfg, pos,
+                             flash=attend)[0]
+    return L.lm_head_logits(x, other, cfg)
+
+
 def teacher_forced(cfg, params, cfg32, params32, reqs, results,
-                   device="cuda"):
-    """Dense bf16 forward over prompt + emitted tokens for every request.
+                   device="cuda", kv_dtype=None):
+    """Dense bf16 forward over prompt + emitted tokens for every request
+    (with ``kv_dtype``, K/V through the page codec: ``codec_forward``).
 
     Calibration: the dense bf16 path's own distance from an f32 forward of
     the same weights, eps = max |logits_bf16 − logits_f32| over the
@@ -245,22 +384,39 @@ def teacher_forced(cfg, params, cfg32, params32, reqs, results,
     softmax), so it too sits within ~eps of the f32 logits and the two
     bf16 paths within TOL = 2·eps of each other (checked directly on the
     first token). Greedy emits the engine's argmax, so the emitted token's
-    dense logit is within DELTA = 2·TOL of the dense maximum."""
+    dense logit is within DELTA = 2·TOL of the dense maximum.
+
+    Quantized pages: the codec's payloads are a function of K and V, so a
+    bf16 rounding of K or V can move a value onto the neighbouring grid
+    point (an int8 step is absmax/127, an fp8 step up to 2^-3 relative).
+    The f32 forward quantizes its own f32 K/V, so eps includes those
+    flips as well as the bf16 rounding; the serving path flips codes
+    against the dense bf16 path the same way, and TOL = 2·eps, DELTA =
+    2·TOL hold as derived above. With eps of order 1 this is a coarse
+    check: it passes any token near the top of the distribution. The
+    discriminating check of quantized serving is ``f32_pool_check``."""
     import torch
     from paddle_tpu_torch.models.llama import llama_forward
+
+    def forward(p, seq, c):
+        if kv_dtype is None:
+            return llama_forward(p, seq, c)
+        return codec_forward(p, seq, c, kv_dtype)
+
     worst = {"eps": 0.0, "gap_over_delta": 0.0, "argmax_agree": 0,
              "tokens": 0, "first_err_over_tol": 0.0}
     for i in range(0, len(reqs), 4):
         chunk = list(range(i, min(i + 4, len(reqs))))
         firsts = first_token_logits(cfg, params,
-                                    [reqs[k][0] for k in chunk], device)
+                                    [reqs[k][0] for k in chunk], device,
+                                    kv_dtype)
         for row, k in enumerate(chunk):
             prompt, _ = reqs[k]
             out = results[k].out
             seq = torch.tensor([prompt + out], device=device)
             with torch.no_grad():
-                lb = llama_forward(params, seq, cfg)[0]
-                lf = llama_forward(params32, seq, cfg32)[0]
+                lb = forward(params, seq, cfg)[0]
+                lf = forward(params32, seq, cfg32)[0]
             pos = torch.arange(len(prompt) - 1, len(prompt) - 1 + len(out),
                                device=device)
             lb, lf = lb[pos], lf[pos]
@@ -304,9 +460,8 @@ def f32_serving_check(cfg32, params32, reqs, device="cuda"):
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
     from paddle_tpu_torch.models.llama import llama_forward
-    engine = ContinuousBatcher(cfg32, params32, max_batch=4, max_len=1024,
-                               prompt_buckets=(512,), burst=8, page_size=16,
-                               device=device)
+    engine = ContinuousBatcher(cfg32, params32, device=device,
+                               **SERVE_GEOMETRY)
     rids = [engine.add_request(p, m) for p, m in reqs[:4]]
     out = engine.run()
     worst, agree, total = 0.0, 0, 0
@@ -331,18 +486,163 @@ def f32_serving_check(cfg32, params32, reqs, device="cuda"):
     return worst
 
 
-def profile_decode_burst(cfg, params):
+# f32_pool_check: four requests of POOL_CHECK_NEW tokens, POOL_CHECK_STEPS
+# bursts (a prefill-carrying one, then decode-only ones), so that no
+# request finishes and every page is still mapped when the pool is read
+POOL_CHECK_NEW = 40
+POOL_CHECK_STEPS = 4
+# share of a (row, kv head)'s absmax the engine's f32 K/V may differ from
+# the dense forward's (summation order: ≈ 1e-5 of it at most)
+WRITE_SLACK = 2.0 ** -12
+
+
+def pool_forward(params, tokens, cfg, pool_kv):
+    """``llama_forward`` over tokens [1, T] with every layer attending,
+    causally through the flash kernel (K1 on the card), over the given
+    K/V rows ``pool_kv[l]`` = (k, v) [1, T, KV, hd] instead of its own: the
+    teacher-forced forward over a given pool. Returns (logits [T, V], each
+    layer's own (k, v) [T, KV, hd])."""
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_raw
+    layer_p, other = L.split_layer_params(params)
+    x = L._embed(other, tokens, cfg)
+    pos = L._positions(*tokens.shape, x.device)
+    own = []
+    for l in range(cfg.num_hidden_layers):
+        kp, vp = L._expand_gqa(*pool_kv[l], cfg)
+        x, k, v = L._decoder_layer(
+            x, L.layer_slice(layer_p, l), cfg, pos,
+            flash=lambda q, _k, _v, causal: flash_attention_raw(
+                q, kp, vp, causal=causal))
+        own.append((k[0], v[0]))
+    return L.lm_head_logits(x, other, cfg)[0], own
+
+
+def write_share(x, payload, scale, kv_dtype):
+    """How far the pool's rows (``payload``, ``scale``) [T, KV, hd] / [T,
+    KV] sit from the codec of the dense forward's f32 rows ``x``, as
+    shares of their bounds: (worst element share, worst scale share, the
+    fraction of payload codes that differ). Element bound: half a grid
+    step at x (int8: scale/2; fp8: 2^-4·|x|, or 2^-10·scale below fp8's
+    normal range) plus WRITE_SLACK of the (row, head)'s absmax; scale
+    bound: WRITE_SLACK of the scale."""
+    import torch
+    from paddle_tpu_torch.quant.codec import (MODES, dequantize_lastdim,
+                                              quantize_lastdim)
+    ref_pay, ref_scale = quantize_lastdim(x, kv_dtype)
+    qmax = MODES[kv_dtype][1]
+    s = ref_scale[..., None]
+    half = s / 2 if kv_dtype == "int8" else torch.maximum(
+        x.abs() * 2.0 ** -4, s * 2.0 ** -10)
+    bound = half + WRITE_SLACK * qmax * s
+    deq = dequantize_lastdim(payload, scale, torch.float32)
+    elem = float(((deq - x).abs() / bound).max())
+    sc = float(((scale - ref_scale).abs() / (WRITE_SLACK * ref_scale)).max())
+    flips = float((payload.view(torch.uint8) != ref_pay.view(torch.uint8))
+                  .float().mean())
+    return elem, sc, flips
+
+
+def f32_pool_check(cfg32, params32, reqs, kv_dtype, device="cuda"):
+    """The engine in f32 with ``kv_dtype`` pages (the kernel's f32
+    instance): the first four prompts with POOL_CHECK_NEW new tokens each,
+    POOL_CHECK_STEPS bursts, no request finished. Then, per request, a
+    dense f32 forward over prompt + emitted tokens that attends over the
+    rows the engine wrote (``pool_forward``, dequantized in f32 as K4
+    does):
+
+    * read: every emitted token's logit within F32_DELTA = 1e-3 of that
+      forward's maximum. Both sides attend over the same payloads and
+      scales, so they differ by f32 summation order only (≈ 1e-5 on
+      logits of order 5), as the f32 check of bf16 pages does; no code
+      flip enters, and a read of a wrong row, page or scale moves logits
+      by order 1;
+    * write: every pool row — written by the prefill's whole-page write
+      and by the decode steps' row writes — within ``write_share``'s bound
+      of the codec of the forward's own f32 K/V at that position, and its
+      scale within WRITE_SLACK of theirs. The two K/V differ by summation
+      order only, so the engine's payload sits within half a grid step of
+      the forward's K/V; a payload or scale at a wrong index is off by
+      order 1.
+
+    Returns {"gap": worst gap, "write": worst element share, "scale":
+    worst scale share, "flips": largest fraction of differing codes}."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatcher
+    from paddle_tpu_torch.quant.codec import dequantize_lastdim
+    engine = ContinuousBatcher(cfg32, params32, kv_dtype=kv_dtype,
+                               device=device, **SERVE_GEOMETRY)
+    for prompt, _ in reqs[:4]:
+        engine.add_request(prompt, POOL_CHECK_NEW)
+    for _ in range(POOL_CHECK_STEPS):
+        engine.step()
+    check(engine.stats["prefill_bursts"] == 1 and engine.active == 4
+          and not engine.take_finished(), f"{kv_dtype} f32 pool check: "
+          f"the four requests are not all live ({engine.stats})")
+    cache = engine._cache
+    worst = {"gap": 0.0, "write": 0.0, "scale": 0.0, "flips": 0.0}
+    agree = total = 0
+    for slot, req in enumerate(engine._slot_req):
+        P, out = len(req.prompt), req.out
+        rows = int(engine._pos[slot])  # all but the last emitted token's
+        check(rows == P + len(out) - 1, f"slot {slot}: {rows} rows written "
+              f"for a prompt of {P} and {len(out)} tokens")
+        pages = torch.tensor(engine._page_tbl[slot], device=device)
+
+        def live(pool):
+            return pool[pages].reshape(-1, *pool.shape[2:])[:rows]
+
+        stored = [tuple(live(cache[n][l]) for n in ("k", "k_scale", "v",
+                                                     "v_scale"))
+                  for l in range(cfg32.num_hidden_layers)]
+        pool_kv = [(dequantize_lastdim(kq, ks, torch.float32)[None],
+                    dequantize_lastdim(vq, vs, torch.float32)[None])
+                   for kq, ks, vq, vs in stored]
+        seq = torch.tensor([req.prompt + out[:-1]], device=device)
+        with torch.no_grad():
+            logits, own = pool_forward(params32, seq, cfg32, pool_kv)
+        logits = logits[P - 1:]
+        emitted = torch.tensor(out, device=device)
+        gap = logits.max(dim=-1).values \
+            - logits.gather(1, emitted[:, None])[:, 0]
+        worst["gap"] = max(worst["gap"], float(gap.max()))
+        agree += int((gap == 0).sum())
+        total += len(out)
+        for (k, v), (kq, ks, vq, vs) in zip(own, stored):
+            for x, pay, sc in ((k, kq, ks), (v, vq, vs)):
+                elem, scale, flips = write_share(x, pay, sc, kv_dtype)
+                worst["write"] = max(worst["write"], elem)
+                worst["scale"] = max(worst["scale"], scale)
+                worst["flips"] = max(worst["flips"], flips)
+    print(f"[serve {kv_dtype}] f32 engine vs dense f32 over its own pool: "
+          f"{total} tokens, max gap {worst['gap']:.3e} (delta {F32_DELTA}), "
+          f"argmax agree {agree}/{total}; pool rows vs the codec of the "
+          f"dense K/V: worst {worst['write']:.3f} of the element bound, "
+          f"{worst['scale']:.3f} of the scale bound, codes differing in at "
+          f"most {worst['flips']:.2e} of a layer's elements", flush=True)
+    check(worst["gap"] <= F32_DELTA, f"{kv_dtype} f32 pool check: emitted "
+          f"token {worst['gap']} below the dense max logit (delta "
+          f"{F32_DELTA})")
+    check(worst["write"] <= 1.0 and worst["scale"] <= 1.0,
+          f"{kv_dtype} f32 pool check: pool rows off the codec of the dense "
+          f"K/V ({worst['write']:.3f} of the element bound, "
+          f"{worst['scale']:.3f} of the scale bound)")
+    return worst
+
+
+def profile_decode_burst(cfg, params, kv_dtype=None):
     """torch.profiler over one decode-only burst of a 4-slot engine whose
-    slots hold 500-token prompts: host wall time, device busy time, K3's
-    share, and the kernels that took the most device time."""
+    slots hold 500-token prompts (``kv_dtype`` pages): host wall time,
+    device busy time, the device kernels launched, the attention kernel's
+    share (K3, or K4 with kv_dtype), and the kernels that took the most
+    device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
     rng = np.random.default_rng(SEED + 3)
-    engine = ContinuousBatcher(cfg, params, max_batch=4, max_len=1024,
-                               prompt_buckets=(512,), burst=8, page_size=16,
-                               device="cuda")
+    engine = ContinuousBatcher(cfg, params, kv_dtype=kv_dtype, device="cuda",
+                               **SERVE_GEOMETRY)
     for _ in range(4):
         engine.add_request(rng.integers(1, cfg.vocab_size, 500).tolist(), 40)
     engine.step()                       # prefill-carrying burst
@@ -362,62 +662,90 @@ def profile_decode_burst(cfg, params):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    k3_ms = sum(r[0] for r in rows if "rpa_kernel" in r[2])
-    k3_n = sum(r[1] for r in rows if "rpa_kernel" in r[2])
-    print(f"[profile] one decode-only burst of {engine.burst} steps: host "
-          f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), K3 {k3_ms:.3f} ms over "
-          f"{k3_n} launches", flush=True)
+    launched = sum(r[1] for r in rows)
+    att_ms = sum(r[0] for r in rows if "rpa_kernel" in r[2])
+    att_n = sum(r[1] for r in rows if "rpa_kernel" in r[2])
+    att = "K4" if kv_dtype else "K3"
+    pages = f"{kv_dtype} pages" if kv_dtype else "bf16 pages"
+    print(f"[profile] one decode-only burst of {engine.burst} steps, "
+          f"{pages}: host wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} "
+          f"ms ({100 * busy_ms / wall_ms:.1f}%), {launched} device kernels, "
+          f"{att} {att_ms:.3f} ms over {att_n} launches", flush=True)
     for ms, n, key in rows[:8]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "k3_ms": k3_ms,
-            "k3_launches": k3_n}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "kernels": launched, "attention_ms": att_ms,
+            "attention_launches": att_n}
 
 
 # --------------------------------------------------------------- phase 5
-def timed_shape(kind, B, q_len, kv_len, H, KV, hd, ps, max_pages):
+def timed_shape(kind, B, q_len, kv_len, H, KV, hd, ps, max_pages,
+                kv_dtype=None):
+    """K3 (or K4 over ``kv_dtype`` pages) at one shape of the serving
+    path, bf16: kernel, kernel with the wrapper's host time, plain
+    version, and SDPA over the same rows gathered contiguous (for K4
+    dequantized beforehand: no PyTorch call dequantizes and attends in
+    one, so SDPA is a yardstick only and ``library_ms`` stays null).
+    Bounds count each input read once and each output written once: q
+    and out, the live K/V rows (payload and scales for K4), the block
+    table and lengths; and 4·hd flops per attended (row, column) pair."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import ragged_attention as ra
+    from paddle_tpu_torch.quant.codec import dequantize_lastdim
     rng = np.random.default_rng(SEED + 2)
     args = make_case(rng, [q_len] * B, [kv_len] * B, H, KV, hd, ps,
                      max_pages, torch.bfloat16)
+    kw = {"page_size": ps}
+    if kv_dtype:
+        q, kp, vp, bt, ql, kl, ks, vs = quantize_case(args, kv_dtype)
+        args = (q, kp, vp, bt, ql, kl)
+        kw.update(k_scale=ks, v_scale=vs)
     q, kp, vp, bt = args[:4]
-    out = ra.ragged_paged_attention(*args, page_size=ps)
-    ref = ra.ragged_paged_attention_reference(*args, page_size=ps)
+    out = ra.ragged_paged_attention(*args, **kw)
+    ref = ra.ragged_paged_attention_reference(*args, **kw)
     err = float((out.float() - ref.float()).abs().max())
-    ms = time_ms(lambda: ra.ragged_paged_attention(*args, page_size=ps))
-    host_ms = time_ms(lambda: ra.ragged_paged_attention(*args, page_size=ps),
+    ms = time_ms(lambda: ra.ragged_paged_attention(*args, **kw))
+    host_ms = time_ms(lambda: ra.ragged_paged_attention(*args, **kw),
                       device_only=False)
     plain_ms = time_ms(
-        lambda: ra.ragged_paged_attention_reference(*args, page_size=ps))
+        lambda: ra.ragged_paged_attention_reference(*args, **kw))
     # yardstick: the same rows gathered contiguous (gather not timed)
     rows = bt.long()[:, :-(-kv_len // ps)]
-    kc = kp[rows].reshape(B, -1, KV, hd)[:, :kv_len].transpose(1, 2)
-    vc = vp[rows].reshape(B, -1, KV, hd)[:, :kv_len].transpose(1, 2)
-    kc, vc = kc.contiguous(), vc.contiguous()
+    kc = kp[rows].reshape(B, -1, KV, hd)[:, :kv_len]
+    vc = vp[rows].reshape(B, -1, KV, hd)[:, :kv_len]
+    if kv_dtype:
+        kc = dequantize_lastdim(kc, ks[rows].reshape(B, -1, KV)[:, :kv_len],
+                                q.dtype)
+        vc = dequantize_lastdim(vc, vs[rows].reshape(B, -1, KV)[:, :kv_len],
+                                q.dtype)
+    kc, vc = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     qs = q.transpose(1, 2).contiguous()
     gqa = {"enable_gqa": True} if H != KV else {}
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qs, kc, vc, is_causal=q_len > 1, **gqa))
     item = 2
-    nbytes = item * (2 * B * q_len * H * hd + 2 * B * kv_len * KV * hd) \
+    row_head = kp.element_size() * hd + (4 if kv_dtype else 0)
+    nbytes = item * 2 * B * q_len * H * hd + 2 * B * kv_len * KV * row_head \
         + 4 * (bt.numel() + 2 * B)
     pairs = B * H * sum(kv_len - q_len + r + 1 for r in range(q_len))
     flops = 4 * pairs * hd
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    pages = f" {kv_dtype} pages" if kv_dtype else ""
     rec = {"shape": f"{kind}: B={B} q_len={q_len} kv_len={kv_len} H={H} "
-                    f"KV={KV} hd={hd} page_size={ps} bf16",
+                    f"KV={KV} hd={hd} page_size={ps} bf16{pages}",
            "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": lib_ms, "max_abs_err": err,
-           "ms_with_host": host_ms, "bytes": nbytes,
-           "flops": flops}
+           "library_ms": None if kv_dtype else sdpa_ms, "max_abs_err": err,
+           "ms_with_host": host_ms, "bytes": nbytes, "flops": flops}
+    if kv_dtype:
+        rec["sdpa_on_dequantized_ms"] = sdpa_ms
+    label = "sdpa on dequantized K/V (yardstick)" if kv_dtype else "sdpa"
     print(f"  {rec['shape']}: kernel {ms:.4f} ms (with host {host_ms:.4f}"
           f" ms), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, max_abs_err "
+          f"{plain_ms:.4f} ms, {label} {sdpa_ms:.4f} ms, max_abs_err "
           f"{err:.3e}", flush=True)
     return rec
 
@@ -778,11 +1106,84 @@ def training_phase(cfg, device="cuda"):
     return launches
 
 
+# the int8 pool must hold at least this many times the bf16 pool's usable
+# pages at one byte budget: 2·hd/(hd+4) = 1.94 at head_dim 128, less the
+# scratch page of each pool
+CAPACITY_RATIO = 1.9
+
+
+def checked_serve(cfg, params, device="cuda", kv_dtype=None,
+                  pool_hbm_bytes=None):
+    """``serve`` and the checks every serving run must pass: each request
+    completes with its full budget, admissions land mid-flight, the pool
+    drains, and the path's kernel (K3, or K4 with ``kv_dtype``) launches
+    32 × (decode steps + prefill-carrying bursts) times while the other
+    does not launch at all. Returns (engine, requests, results, seconds,
+    launches, tokens)."""
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    engine, reqs, results, seconds, midflight, launches, step_s = serve(
+        cfg, params, device, kv_dtype=kv_dtype,
+        pool_hbm_bytes=pool_hbm_bytes)
+    kernel, other = ("K4", "K3") if kv_dtype else ("K3", "K4")
+    others = ra.LAUNCHES["ragged_paged_attention" if kv_dtype
+                         else "ragged_paged_attention_quant"]
+    st = engine.stats
+    expect = cfg.num_hidden_layers * (st["decode_steps"]
+                                      + st["prefill_bursts"])
+    n_tok = sum(len(r.out) for r in results if r is not None)
+    tag = f"[serve {kv_dtype}]" if kv_dtype else "[serve]"
+    print(f"{tag} {len(reqs)} requests, {n_tok} tokens in {seconds:.3f} s "
+          f"= {n_tok / seconds:.2f} tokens/s; stats {st}; mid-flight "
+          f"admission bursts {midflight}; {engine._alloc.usable} usable "
+          f"pages; {kernel} launches {launches} (expected {expect}), "
+          f"{other} launches {others}", flush=True)
+    for kind, runs in step_s.items():
+        if runs:
+            print(f"{tag} {kind} bursts: {len(runs)}, median "
+                  f"{statistics.median(runs) * 1e3:.2f} ms per burst of "
+                  f"{engine.burst} decode steps", flush=True)
+    what = kv_dtype or "bf16 pages"
+    check(launches == expect, f"{what}: {kernel} launches {launches} != "
+          f"{expect}")
+    check(launches > 0, f"{what}: serving launched no kernel")
+    check(others == 0, f"{what}: {other} launched {others} times")
+    check(midflight >= 2, f"{what}: only {midflight} bursts admitted "
+          "mid-flight")
+    check(all(r is not None and r.done and r.reason == "complete"
+              and len(r.out) == m for r, (_, m) in zip(results, reqs)),
+          f"{what}: not every request finished with its full budget")
+    check(engine.pages_in_use == 0, f"{what}: {engine.pages_in_use} pages "
+          "in use after the drain")
+    return engine, reqs, results, seconds, launches, n_tok
+
+
+def quantized_serving(cfg, params, cfg32, params32, kv_dtype, budget,
+                      device="cuda"):
+    """The serving phase's 8 requests with ``kv_dtype`` pages in a pool of
+    ``budget`` bytes, through ``checked_serve``, then every emitted token
+    within DELTA of a teacher-forced dense forward whose K/V pass through
+    the same codec (``teacher_forced``). Returns the run's numbers."""
+    engine, reqs, results, seconds, launches, n_tok = checked_serve(
+        cfg, params, device, kv_dtype=kv_dtype, pool_hbm_bytes=budget)
+    usable = engine._alloc.usable
+    del engine
+    tf = teacher_forced(cfg, params, cfg32, params32, reqs, results,
+                        device, kv_dtype=kv_dtype)
+    print(f"[serve {kv_dtype}] teacher-forced through the codec: "
+          f"{json.dumps(tf)}", flush=True)
+    return {"launches": launches, "tokens": n_tok, "seconds": seconds,
+            "tokens_per_s": n_tok / seconds, "usable_pages": usable,
+            "teacher_forced": tf}
+
+
 def serving_phases(cfg):
-    """Phases 4 and 5: serve, check, profile, then time K3. Returns K3's
-    record for the kernels line."""
+    """Phases 4 and 5: serve (bf16 pages, then int8 and fp8 pages), check,
+    profile, then time K3 and K4. Returns their records for the kernels
+    line."""
     import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatcher
     from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.models.llama_paged import page_bytes
 
     # 4. serving
     t0 = time.perf_counter()
@@ -792,38 +1193,36 @@ def serving_phases(cfg):
           f"{time.perf_counter() - t0:.2f} s, "
           f"{sum(v.numel() for v in params.values()) / 1e9:.3f} B params",
           flush=True)
-    engine, reqs, results, seconds, midflight, launches, step_s = \
-        serve(cfg, params)
-    st = engine.stats
-    expect = cfg.num_hidden_layers * (st["decode_steps"]
-                                      + st["prefill_bursts"])
-    n_tok = sum(len(r.out) for r in results if r is not None)
-    print(f"[serve] {len(reqs)} requests, {n_tok} tokens in {seconds:.3f} s "
-          f"= {n_tok / seconds:.2f} tokens/s; stats {st}; mid-flight "
-          f"admission bursts {midflight}; K3 launches {launches} "
-          f"(expected {expect})", flush=True)
-    for kind, runs in step_s.items():
-        if runs:
-            print(f"[serve] {kind} bursts: {len(runs)}, median "
-                  f"{statistics.median(runs) * 1e3:.2f} ms per burst of "
-                  f"{engine.burst} decode steps", flush=True)
-    check(launches == expect, f"K3 launches {launches} != {expect}")
-    check(launches > 0, "serving launched no kernel")
-    check(midflight >= 2, f"only {midflight} bursts admitted mid-flight")
-    check(all(r is not None and r.done and r.reason == "complete"
-              and len(r.out) == m for r, (_, m) in zip(results, reqs)),
-          "not every request finished with its full budget")
-    check(engine.pages_in_use == 0,
-          f"{engine.pages_in_use} pages in use after the drain")
+    engine, reqs, results, seconds, launches, n_tok = \
+        checked_serve(cfg, params)
+    # the byte budget of this engine's pool, for the quantized runs
+    budget = engine._alloc.num_pages * page_bytes(cfg, engine._ps)
     del engine
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = {k: v.float() for k, v in params.items()}
     tf = teacher_forced(cfg, params, cfg32, params32, reqs, results)
     print(f"[serve] teacher-forced: {json.dumps(tf)}", flush=True)
     f32_serving_check(cfg32, params32, reqs)
+    quant = {kv: quantized_serving(cfg, params, cfg32, params32, kv, budget)
+             for kv in ("int8", "fp8")}
+    for kv, q in quant.items():
+        q["f32_pool_check"] = f32_pool_check(cfg32, params32, reqs, kv)
     del params32
     torch.cuda.empty_cache()
+    bf16_pool = ContinuousBatcher(cfg, params, pool_hbm_bytes=budget,
+                                  device="cuda", **SERVE_GEOMETRY)
+    bf16_usable = bf16_pool._alloc.usable
+    del bf16_pool
+    for kv, q in quant.items():
+        ratio = q["usable_pages"] / bf16_usable
+        print(f"[serve] {budget} bytes of pool: {kv} {q['usable_pages']} "
+              f"usable pages, bf16 {bf16_usable}: {ratio:.3f}x (at least "
+              f"{CAPACITY_RATIO})", flush=True)
+        check(ratio >= CAPACITY_RATIO, f"{kv} pool holds {ratio:.3f}x the "
+              f"bf16 pool's pages, below {CAPACITY_RATIO}")
+    torch.cuda.empty_cache()
     profile_decode_burst(cfg, params)
+    profile_decode_burst(cfg, params, kv_dtype="int8")
     del params
     torch.cuda.empty_cache()
     phase("serving", t0)
@@ -834,22 +1233,48 @@ def serving_phases(cfg):
         cfg.head_dim
     decode = timed_shape("decode", 4, 1, 1024, H, KV, hd, 16, 64)
     prefill = timed_shape("prefill", 4, 512, 512, H, KV, hd, 16, 64)
+    qtimes = {kv: (timed_shape("decode", 4, 1, 1024, H, KV, hd, 16, 64, kv),
+                   timed_shape("prefill", 4, 512, 512, H, KV, hd, 16, 64, kv))
+              for kv in ("int8", "fp8")}
     launches_per_token = launches / n_tok
-    print(f"[times] K3 launches per served token: {launches_per_token:.3f}",
-          flush=True)
+    k4_launches = sum(q["launches"] for q in quant.values())
+    k4_tokens = sum(q["tokens"] for q in quant.values())
+    print(f"[times] launches per served token: K3 {launches_per_token:.3f}, "
+          f"K4 {k4_launches / k4_tokens:.3f}", flush=True)
     phase("times", t0)
-    return {"name": "ragged_paged_attention", "route": "cuda",
-            "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
-            "replaces": "paddle_tpu/ops/ragged_attention.py:97",
-            "launches": launches, "max_abs_err": decode["max_abs_err"],
-            "ms": decode["ms"], "plain_ms": decode["plain_ms"],
-            "bound_ms": decode["bound_ms"],
-            "bound_by": decode["bound_by"],
-            "library_ms": decode["library_ms"],
-            "ms_with_host": decode["ms_with_host"],
-            "shape": decode["shape"], "prefill": prefill,
-            "launches_per_token": launches_per_token,
-            "tokens_per_s": n_tok / seconds}
+    k3 = {"name": "ragged_paged_attention", "route": "cuda",
+          "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+          "replaces": "paddle_tpu/ops/ragged_attention.py:97",
+          "launches": launches, "max_abs_err": decode["max_abs_err"],
+          "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+          "bound_ms": decode["bound_ms"],
+          "bound_by": decode["bound_by"],
+          "library_ms": decode["library_ms"],
+          "ms_with_host": decode["ms_with_host"],
+          "shape": decode["shape"], "prefill": prefill,
+          "launches_per_token": launches_per_token,
+          "tokens_per_s": n_tok / seconds}
+    dec8 = qtimes["int8"][0]
+    k4 = {"name": "ragged_paged_attention_quant", "route": "cuda",
+          "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+          "replaces": "paddle_tpu/ops/ragged_attention.py:194",
+          "launches": k4_launches,
+          "launches_by_kv_dtype": {kv: q["launches"]
+                                   for kv, q in quant.items()},
+          **{k: dec8[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "sdpa_on_dequantized_ms", "ms_with_host",
+                                  "shape")},
+          "prefill": qtimes["int8"][1],
+          "fp8": {"decode": qtimes["fp8"][0], "prefill": qtimes["fp8"][1]},
+          "launches_per_token": k4_launches / k4_tokens,
+          "tokens_per_s": {kv: q["tokens_per_s"] for kv, q in quant.items()},
+          "f32_pool_check": {kv: q["f32_pool_check"]
+                             for kv, q in quant.items()},
+          "usable_pages": {"bf16": bf16_usable,
+                           **{kv: q["usable_pages"]
+                              for kv, q in quant.items()}}}
+    return [k3, k4]
 
 
 FLASH_REPLACES = {
@@ -908,12 +1333,13 @@ def main() -> int:
     phase("build", t0)
 
     cfg = LlamaConfig.llama2_7b()
-    # 3. K3 against its plain version
+    # 3. K3 and K4 against their plain versions
     t0 = time.perf_counter()
     kernel_cases()
+    quant_kernel_cases()
     phase("kernels", t0)
-    # 4-5. serving and K3's times
-    records = [serving_phases(cfg)]
+    # 4-5. serving and K3's and K4's times
+    records = serving_phases(cfg)
     # 6. K1 and K2 against their plain versions, and their times
     t0 = time.perf_counter()
     flash = flash_times(flash_cases())

@@ -24,10 +24,20 @@ The host scheduler is plain Python between device calls and keeps slot
 state in numpy. Each step uploads the slot state, launches the burst and
 blocks exactly once, on one device-to-host readback of the merged result.
 
-Only ``kv_layout="ragged"`` with pages in the model dtype is ported. The
-other layouts, serving precisions, quantized pools, prefix sharing,
-speculative decoding and admission policies raise; metrics, chaos, SLO
-and admin hooks wait for later slices.
+Quantized pages: ``kv_dtype="int8"`` or ``"fp8"`` stores the pool through
+the port's block codecs (``quant/codec.py``: payload plus one f32 scale per
+(row, kv head)) and every attention read dequantizes through kernel K4.
+``pool_hbm_bytes`` sizes the pool by a byte budget instead of a page
+count: the same budget buys ~1.94× the pages in int8 or fp8 at head_dim
+128, scales included.
+
+Only ``kv_layout="ragged"`` is ported. The other layouts, serving
+precisions, prefix sharing, speculative decoding and admission policies
+raise; the ``PADDLE_SERVE_KV_DTYPE`` environment knob (which the JAX
+engine reads when ``kv_dtype`` is None) waits for the port of
+``utils/env_flags.py``, so here ``kv_dtype=None`` always means pages in
+the model dtype; metrics, chaos, SLO and admin hooks wait for later
+slices.
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .paging import PageAllocator, SCRATCH_PAGE, pages_for
+from ..quant.codec import normalize_kv_dtype
+from .paging import PageAllocator, SCRATCH_PAGE, pages_for, pages_for_budget
 
 __all__ = ["ContinuousBatcher", "ServedRequest"]
 
@@ -70,6 +81,7 @@ class ContinuousBatcher:
                  precision: str | None = None, kv_layout: str = "ragged",
                  page_size: int = 16, num_pages: int | None = None,
                  kv_dtype: str | None = None,
+                 pool_hbm_bytes: int | None = None,
                  prefix_cache_pages: int | None = None,
                  spec_decode: bool | None = None, admission=None,
                  device="cuda"):
@@ -79,7 +91,7 @@ class ContinuousBatcher:
                 "serves kv_layout='ragged'")
         if kv_layout != "ragged":
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        for name, val in (("precision", precision), ("kv_dtype", kv_dtype),
+        for name, val in (("precision", precision),
                           ("prefix_cache_pages", prefix_cache_pages),
                           ("spec_decode", spec_decode),
                           ("admission", admission)):
@@ -93,6 +105,9 @@ class ContinuousBatcher:
                              f"was asked to run on {self._dev}")
         self._cfg = model_config
         self._params = params
+        # "int8" | "fp8" | None; every unquantized spelling is None, a
+        # typo raises
+        self._kv_dtype = normalize_kv_dtype(kv_dtype)
         self.B, self.S = int(max_batch), int(max_len)
         self._buckets = tuple(sorted(b for b in prompt_buckets
                                      if b <= max_len))
@@ -112,16 +127,25 @@ class ContinuousBatcher:
         self._limit = np.zeros(self.B, np.int32)
         self._slot_req: list[ServedRequest | None] = [None] * self.B
 
-        from ..models.llama_paged import init_paged_kv_cache
+        from ..models.llama_paged import init_paged_kv_cache, page_bytes
         self._ps = int(page_size)
         if self._ps < 1:
             raise ValueError("page_size must be >= 1")
         slot_max_pages = pages_for(self.S, self._ps)
-        if num_pages is None:
+        if pool_hbm_bytes is not None:
+            # a device byte budget: as many pages as it buys at this
+            # kv_dtype (scales included)
+            if num_pages is not None:
+                raise ValueError("pass num_pages or pool_hbm_bytes, not both")
+            num_pages = pages_for_budget(
+                pool_hbm_bytes,
+                page_bytes(model_config, self._ps, self._kv_dtype))
+        elif num_pages is None:
             # capacity for every slot at max_len, plus the scratch page
             num_pages = self.B * slot_max_pages + 1
         self._alloc = PageAllocator(num_pages)
         self._cache = init_paged_kv_cache(model_config, num_pages, self._ps,
+                                          kv_dtype=self._kv_dtype,
                                           device=self._dev)
         # per-slot block tables (host truth); _admit_seq orders slots by
         # admission for preemption
@@ -295,7 +319,8 @@ class ContinuousBatcher:
                 dev(new_tokens), dev(new_lens), dev(starts), self.eos_id,
                 self._gen, config=self._cfg, n=self.burst,
                 has_prefill=bool(staged), temperature=self._temp,
-                top_k=self._top_k, pad_id=self.pad_id)
+                top_k=self._top_k, pad_id=self.pad_id,
+                kv_dtype=self._kv_dtype)
         self.stats["bursts"] += 1
         self.stats["decode_steps"] += self.burst
         self.stats["prefill_bursts"] += bool(staged)

@@ -34,6 +34,11 @@ SIGNATURES = {
     "ragged_paged_attention": {
         "rpa_launch": ([_P] * 7 + [_I] * 8 + [_L] * 10
                        + [ctypes.c_float, _P], _I),
+        # pointers (q, pools, scales, table, lens, out), dtype, payload,
+        # sizes, strides (q, pools, out, scales), table stride, scale,
+        # stream
+        "rpa_quant_launch": ([_P] * 9 + [_I] * 9 + [_L] * 12
+                             + [ctypes.c_float, _P], _I),
         "rpa_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {

@@ -1,27 +1,39 @@
-// Ragged paged attention for Hopper (sm_90a) — kernel K3 of the port.
+// Ragged paged attention for Hopper (sm_90a) — kernels K3 and K4 of the
+// port.
 //
-// Replaces: paddle_tpu/ops/ragged_attention.py::ragged_paged_attention
-// (`_kernel_body`, the Pallas TPU kernel launched by `pl.pallas_call`).
+// Replaces: paddle_tpu/ops/ragged_attention.py::ragged_paged_attention,
+// the Pallas TPU kernels launched by its `pl.pallas_call`:
+//   K3 — `_kernel_body`, pools in the model dtype (rpa_launch);
+//   K4 — `_kernel_body_quant`, int8 or fp8-e4m3 payload pools with f32
+//        scales per (page, row, kv head) (rpa_quant_launch).
 // It computes the same function — not a block-by-block carry-over:
 //   out[b, qpos, h] = softmax_j(q·k_j / sqrt(hd)) · v_j over the live
 //   columns j < kv_len[b] with j <= kv_len[b] − q_len[b] + qpos, reading
 //   K/V rows of kv head h / groups through the slot's block table.
 // A slot with q_len = 0 writes zeros. Decode rows (q_len = 1), ragged
 // causal prefill rows and suffix rows (kv_len > q_len > 1) are all just
-// values of (q_len, kv_len) for the same launch.
+// values of (q_len, kv_len) for the same launch. K4 dequantizes each K and
+// V row as the reference does: payload × scale in f32 (__fmul_rn, never
+// contracted), rounded to the model type (round to nearest even; the
+// identity for f32), then widened to f32 — the values the plain version
+// forms, bit for bit.
 //
 // What bounds it on an H100: bytes. Decode reads 2·kv_len·KV·hd·bytes of
 // pool per slot per layer (K and V once) and does ~4 flops per byte read;
 // at 3.35 TB/s, B=4 slots of 1024 bf16 positions at KV=32, hd=128
-// (64 MiB) take at least 20 us. The design therefore:
+// (64 MiB) take at least 20 us, and K4's int8/fp8 pages with their f32
+// scales (33 MiB) at least 10 us. The design therefore:
 //   * reads only the ceil(kv_len/page_size) live pages, page addresses by
 //     block-table pointer arithmetic, and never touches a row at or past
-//     the row limit (no NaN or stale row in a dead tail or in the scratch
-//     page can reach the output — such rows are skipped, not weighted 0);
+//     the row limit, payload or scale (no NaN or stale row in a dead tail
+//     or in the scratch page can reach the output — such rows are
+//     skipped, not weighted 0);
 //   * loads each K/V row once per block and uses it for every query row
 //     the block holds (all `groups` query heads of one kv head, and up to
-//     8 query rows of a prefill), 8 or 16 bytes per lane, a warp reading
-//     one contiguous row;
+//     8 query rows of a prefill), a warp reading one contiguous row: 8 or
+//     16 bytes per lane for K3, 4 payload bytes per lane at hd 128 for K4
+//     (the same element-to-lane map, one byte per element), plus the
+//     row's one scale, which every lane of the warp reads at one address;
 //   * spreads a block's keys over 8-16 warps with 4 rows in flight per
 //     warp, each warp keeping an online softmax (running max, sum and
 //     accumulator in f32), merged across warps through shared memory.
@@ -30,19 +42,22 @@
 // Simple first: CUDA cores, no wgmma, no TMA, no split-KV across blocks.
 //
 // Numerics: logits, softmax and accumulation in f32; the probabilities are
-// never rounded. The plain version (and the TPU kernel) normalise first
-// and round the probabilities to the pool dtype before the V product, so
-// in bf16 the two differ by at most ~2^-9·max|V| from that rounding plus
-// half an ulp of output rounding on each side: the stated bound is
-// 2^-7·max|V| (ops/ragged_attention.py, BF16_TOL_PER_MAX_V). In f32 they
-// differ by summation order only.
+// never rounded. The plain version (and the TPU kernels) normalise first
+// and round the probabilities to the dtype of the V rows before the V
+// product, so in bf16 the two differ by at most 2^-8 times the largest |V|
+// a row attends from that rounding plus at most 2^-8·|out| of output
+// rounding on each side: 3·2^-8 of that max in all. K4 is held to 2^-6
+// of it per output row, K3 to 2^-7 of the call's largest |V|
+// (ops/ragged_attention.py: BF16_ROW_TOL and `tolerance`,
+// BF16_TOL_PER_MAX_V). In f32 they differ by summation order only.
 //
 // C interface (built by nvcc, loaded with ctypes; no PyTorch headers):
-// rpa_launch takes device pointers, sizes, element strides, the f32 scale
-// and the CUDA stream; it launches on that stream, allocates nothing, and
-// returns cudaGetLastError().
+// rpa_launch and rpa_quant_launch take device pointers, sizes, element
+// strides, the f32 scale and the CUDA stream; they launch on that stream,
+// allocate nothing, and return cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -58,8 +73,23 @@ struct Params {
   long long q_sb, q_sq, q_sh;     // q strides (elements): slot, row, head
   long long kv_sp, kv_sr, kv_sh;  // pool strides: page, row, kv head
   long long o_sb, o_sq, o_sh;     // out strides
+  long long s_sp, s_sr;           // K4 scale-pool strides: page, row (the
+                                  // kv head stride is 1)
   long long bt_sb;                // block-table row stride
   float scale;
+};
+
+// Device pointers of one launch; ks/vs are null for K3.
+struct Ptrs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* bt;
+  const int* ql;
+  const int* kl;
+  void* o;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -97,6 +127,50 @@ __device__ __forceinline__ void load_vec(const T* p, float (&out)[EPL]) {
   }
 }
 
+// One payload byte (the low 8 bits of b) as f32.
+template <typename P>
+__device__ __forceinline__ float payload_to_f32(unsigned b);
+template <>
+__device__ __forceinline__ float payload_to_f32<int8_t>(unsigned b) {
+  return static_cast<float>(static_cast<int8_t>(static_cast<uint8_t>(b)));
+}
+template <>
+__device__ __forceinline__ float payload_to_f32<__nv_fp8_e4m3>(unsigned b) {
+  __nv_fp8_e4m3 x;
+  x.__x = static_cast<__nv_fp8_storage_t>(b);
+  return static_cast<float>(x);  // exact: e4m3 -> half -> float
+}
+
+// An f32 value rounded to the model type T, as f32.
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// EPL consecutive one-byte payload elements at p (aligned to EPL bytes),
+// dequantized with the row's scale s: payload × s in f32, rounded to T.
+template <typename T, typename P, int EPL>
+__device__ __forceinline__ void load_dequant(const P* p, float s,
+                                             float (&out)[EPL]) {
+  unsigned raw;
+  if constexpr (EPL == 4) {
+    raw = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (EPL == 2) {
+    raw = *reinterpret_cast<const uint16_t*>(p);
+  } else {
+    static_assert(EPL == 1, "one, two or four payload bytes per lane");
+    raw = *reinterpret_cast<const uint8_t*>(p);
+  }
+#pragma unroll
+  for (int e = 0; e < EPL; ++e)
+    out[e] = round_to<T>(
+        __fmul_rn(payload_to_f32<P>((raw >> (8 * e)) & 0xffu), s));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -105,13 +179,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // One block: slot b, kv head kvh, query rows [r0, r0 + ROWS) of the
 // regrouped [q_max * groups] row axis (row = qpos * groups + gi, query
-// head = kvh * groups + gi). NW warps split the key rows.
-template <typename T, int HD, int ROWS, int NW>
+// head = kvh * groups + gi). NW warps split the key rows. T is the model
+// type (q, out); P the pool's: P = T is K3, a one-byte P is K4, whose
+// rows are dequantized with kscale / vscale.
+template <typename T, typename P, int HD, int ROWS, int NW>
 __global__ void __launch_bounds__(NW * 32)
-rpa_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-           const T* __restrict__ vpool, const int* __restrict__ block_table,
+rpa_kernel(const T* __restrict__ q, const P* __restrict__ kpool,
+           const P* __restrict__ vpool, const float* __restrict__ kscale,
+           const float* __restrict__ vscale,
+           const int* __restrict__ block_table,
            const int* __restrict__ q_lens, const int* __restrict__ kv_lens,
            T* __restrict__ out, const Params p) {
+  constexpr bool kQuant = !std::is_same<T, P>::value;
   constexpr int EPL = HD >= 32 ? HD / 32 : 1;  // elements per lane
   __shared__ float sm_acc[NW][ROWS][HD];
   __shared__ float sm_m[NW][ROWS];
@@ -179,8 +258,15 @@ rpa_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
         const long long page = bt[j / p.ps];
         const long long off = page * p.kv_sp + (j % p.ps) * p.kv_sr +
                               kvh * p.kv_sh + lane * EPL;
-        load_vec<T, EPL>(kpool + off, kf[u]);
-        load_vec<T, EPL>(vpool + off, vf[u]);
+        if constexpr (kQuant) {
+          // the row's one scale per pool, at [page, row, kv head]
+          const long long soff = page * p.s_sp + (j % p.ps) * p.s_sr + kvh;
+          load_dequant<T, P, EPL>(kpool + off, kscale[soff], kf[u]);
+          load_dequant<T, P, EPL>(vpool + off, vscale[soff], vf[u]);
+        } else {
+          load_vec<T, EPL>(kpool + off, kf[u]);
+          load_vec<T, EPL>(vpool + off, vf[u]);
+        }
       }
     }
 #pragma unroll
@@ -251,56 +337,70 @@ rpa_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
 }
 
-template <typename T, int HD, int ROWS>
-void launch_rows(const Params& p, dim3 grid, const T* q, const T* k,
-                 const T* v, const int* bt, const int* ql, const int* kl,
-                 T* o, cudaStream_t stream) {
+template <typename T, typename P, int HD, int ROWS>
+void launch_rows(const Params& p, const Ptrs& a, cudaStream_t stream) {
   // 16 warps keep enough rows in flight for decode's few blocks; at 8
   // query rows the merge buffer would pass 48 KB, so 8 warps there
   constexpr int NW = ROWS >= 8 ? 8 : 16;
-  grid.y = (p.q_max * p.groups + ROWS - 1) / ROWS;
-  rpa_kernel<T, HD, ROWS, NW><<<grid, NW * 32, 0, stream>>>(q, k, v, bt, ql,
-                                                            kl, o, p);
+  const dim3 grid(p.B * p.KV, (p.q_max * p.groups + ROWS - 1) / ROWS, 1);
+  rpa_kernel<T, P, HD, ROWS, NW><<<grid, NW * 32, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const P*>(a.k),
+      static_cast<const P*>(a.v), a.ks, a.vs, a.bt, a.ql, a.kl,
+      static_cast<T*>(a.o), p);
 }
 
-template <typename T, int HD>
-void launch_hd(const Params& p, const void* q, const void* k, const void* v,
-               const int* bt, const int* ql, const int* kl, void* o,
-               cudaStream_t stream) {
-  const dim3 grid(p.B * p.KV, 1, 1);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
+template <typename T, typename P, int HD>
+void launch_hd(const Params& p, const Ptrs& a, cudaStream_t stream) {
   const int span = p.q_max * p.groups;
   if (span >= 8)
-    launch_rows<T, HD, 8>(p, grid, qt, kt, vt, bt, ql, kl, ot, stream);
+    launch_rows<T, P, HD, 8>(p, a, stream);
   else if (span > 2)
-    launch_rows<T, HD, 4>(p, grid, qt, kt, vt, bt, ql, kl, ot, stream);
+    launch_rows<T, P, HD, 4>(p, a, stream);
   else if (span == 2)
-    launch_rows<T, HD, 2>(p, grid, qt, kt, vt, bt, ql, kl, ot, stream);
+    launch_rows<T, P, HD, 2>(p, a, stream);
   else
-    launch_rows<T, HD, 1>(p, grid, qt, kt, vt, bt, ql, kl, ot, stream);
+    launch_rows<T, P, HD, 1>(p, a, stream);
 }
 
-template <typename T>
-int launch_dtype(const Params& p, int hd, const void* q, const void* k,
-                 const void* v, const int* bt, const int* ql, const int* kl,
-                 void* o, cudaStream_t stream) {
+template <typename T, typename P>
+int launch_types(const Params& p, int hd, const Ptrs& a,
+                 cudaStream_t stream) {
   switch (hd) {
-    case 16: launch_hd<T, 16>(p, q, k, v, bt, ql, kl, o, stream); break;
-    case 64: launch_hd<T, 64>(p, q, k, v, bt, ql, kl, o, stream); break;
-    case 128: launch_hd<T, 128>(p, q, k, v, bt, ql, kl, o, stream); break;
+    case 16: launch_hd<T, P, 16>(p, a, stream); break;
+    case 64: launch_hd<T, P, 64>(p, a, stream); break;
+    case 128: launch_hd<T, P, 128>(p, a, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Fills p; returns a cudaError_t code (0 = the sizes can be launched).
+int make_params(Params& p, int B, int q_max, int H, int KV, int page_size,
+                int max_pages, long long q_sb, long long q_sq, long long q_sh,
+                long long kv_sp, long long kv_sr, long long kv_sh,
+                long long o_sb, long long o_sq, long long o_sh,
+                long long s_sp, long long s_sr, long long bt_sb,
+                float scale) {
+  if (B <= 0 || q_max <= 0 || KV <= 0 || H % KV != 0 || page_size <= 0 ||
+      max_pages <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.B = B; p.q_max = q_max; p.H = H; p.KV = KV; p.groups = H / KV;
+  p.ps = page_size; p.max_pages = max_pages;
+  p.q_sb = q_sb; p.q_sq = q_sq; p.q_sh = q_sh;
+  p.kv_sp = kv_sp; p.kv_sr = kv_sr; p.kv_sh = kv_sh;
+  p.o_sb = o_sb; p.o_sq = o_sq; p.o_sh = o_sh;
+  p.s_sp = s_sp; p.s_sr = s_sr;
+  p.bt_sb = bt_sb; p.scale = scale;
+  if ((p.q_max * p.groups + 7) / 8 > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
+// K3. dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
 // Strides are in elements; the last dimension of q, the pools and out is
 // contiguous. Returns a cudaError_t code (0 = launched).
 int rpa_launch(const void* q, const void* k_pool, const void* v_pool,
@@ -311,27 +411,54 @@ int rpa_launch(const void* q, const void* k_pool, const void* v_pool,
                long long kv_sp, long long kv_sr, long long kv_sh,
                long long o_sb, long long o_sq, long long o_sh,
                long long bt_sb, float scale, void* stream) {
-  if (B <= 0 || q_max <= 0 || KV <= 0 || H % KV != 0 || page_size <= 0 ||
-      max_pages <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.B = B; p.q_max = q_max; p.H = H; p.KV = KV; p.groups = H / KV;
-  p.ps = page_size; p.max_pages = max_pages;
-  p.q_sb = q_sb; p.q_sq = q_sq; p.q_sh = q_sh;
-  p.kv_sp = kv_sp; p.kv_sr = kv_sr; p.kv_sh = kv_sh;
-  p.o_sb = o_sb; p.o_sq = o_sq; p.o_sh = o_sh;
-  p.bt_sb = bt_sb; p.scale = scale;
-  if ((p.q_max * p.groups + 7) / 8 > 65535)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int* bt = static_cast<const int*>(block_table);
-  const int* ql = static_cast<const int*>(q_lens);
-  const int* kl = static_cast<const int*>(kv_lens);
+  const int bad = make_params(p, B, q_max, H, KV, page_size, max_pages, q_sb,
+                              q_sq, q_sh, kv_sp, kv_sr, kv_sh, o_sb, o_sq,
+                              o_sh, 0, 0, bt_sb, scale);
+  if (bad) return bad;
+  const Ptrs a{q, k_pool, v_pool, nullptr, nullptr,
+               static_cast<const int*>(block_table),
+               static_cast<const int*>(q_lens),
+               static_cast<const int*>(kv_lens), out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dtype<float>(p, hd, q, k_pool, v_pool, bt, ql, kl, out, s);
+  if (dtype == 0) return launch_types<float, float>(p, hd, a, s);
   if (dtype == 1)
-    return launch_dtype<__nv_bfloat16>(p, hd, q, k_pool, v_pool, bt, ql, kl,
-                                       out, s);
+    return launch_types<__nv_bfloat16, __nv_bfloat16>(p, hd, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K4. dtype: 0 = float32, 1 = bfloat16 (q and out); payload: 0 = int8,
+// 1 = fp8 e4m3 (both pools). k_scale / v_scale are f32 [pages, page_size,
+// KV] with strides s_sp, s_sr and 1. Other arguments as rpa_launch.
+int rpa_quant_launch(const void* q, const void* k_pool, const void* v_pool,
+                     const void* k_scale, const void* v_scale,
+                     const void* block_table, const void* q_lens,
+                     const void* kv_lens, void* out, int dtype, int payload,
+                     int B, int q_max, int H, int KV, int hd, int page_size,
+                     int max_pages, long long q_sb, long long q_sq,
+                     long long q_sh, long long kv_sp, long long kv_sr,
+                     long long kv_sh, long long o_sb, long long o_sq,
+                     long long o_sh, long long s_sp, long long s_sr,
+                     long long bt_sb, float scale, void* stream) {
+  Params p;
+  const int bad = make_params(p, B, q_max, H, KV, page_size, max_pages, q_sb,
+                              q_sq, q_sh, kv_sp, kv_sr, kv_sh, o_sb, o_sq,
+                              o_sh, s_sp, s_sr, bt_sb, scale);
+  if (bad) return bad;
+  const Ptrs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(block_table),
+               static_cast<const int*>(q_lens),
+               static_cast<const int*>(kv_lens), out};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && payload == 0)
+    return launch_types<float, int8_t>(p, hd, a, s);
+  if (dtype == 0 && payload == 1)
+    return launch_types<float, __nv_fp8_e4m3>(p, hd, a, s);
+  if (dtype == 1 && payload == 0)
+    return launch_types<__nv_bfloat16, int8_t>(p, hd, a, s);
+  if (dtype == 1 && payload == 1)
+    return launch_types<__nv_bfloat16, __nv_fp8_e4m3>(p, hd, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

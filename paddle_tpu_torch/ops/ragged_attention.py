@@ -2,33 +2,56 @@
 
 ``ragged_paged_attention`` reads each slot's live pages of a shared KV pool
 through its block table. One function serves decode rows (``q_len = 1``),
-ragged causal prefill rows and suffix rows (``kv_len > q_len > 1``).
+ragged causal prefill rows and suffix rows (``kv_len > q_len > 1``), over
+pools in the model dtype (kernel K3, the TPU's ``_kernel_body``) or over
+int8 / fp8-e4m3 pools with per-(page, row, kv head) f32 scales (kernel K4,
+the TPU's ``_kernel_body_quant``; pass ``k_scale`` and ``v_scale``).
 
 Dispatch follows the tensors' device and nothing else:
 
 * CPU tensors take ``ragged_paged_attention_reference``, the plain PyTorch
   version below;
 * CUDA tensors launch the hand-written Hopper kernel
-  ``csrc/ragged_paged_attention.cu`` (built with nvcc at first use by
+  ``csrc/ragged_paged_attention.cu`` (``rpa_launch`` for K3,
+  ``rpa_quant_launch`` for K4; built with nvcc at first use by
   ``_build.py``), or raise. Nothing sends a CUDA tensor elsewhere.
 
-Both compute the function ``_kernel_body`` of the TPU kernel computes, with
-one deliberate difference for non-finite pool contents: V rows at or past
-``kv_len`` are zeroed (the TPU kernel zeroes only rows past the live
-pages), so a NaN in the dead tail of a live page cannot reach the output.
-For finite pools the two are the same function. A query row whose mask is
-empty (only possible when ``q_len > kv_len``, which no caller produces)
+Both compute the function of the TPU kernels, with one deliberate
+difference for non-finite pool contents: rows at or past ``kv_len`` never
+reach the output (the TPU kernels zero only V rows past the live pages),
+so a NaN in the dead tail of a live page — payload or scale — cannot reach
+it. For finite pools the two are the same function. A query row whose mask
+is empty (only possible when ``q_len > kv_len``, which no caller produces)
 gives zeros.
 
-Numerics of the kernel against the plain version: the plain version, like
-the TPU kernel, normalises the softmax in f32 and rounds the probabilities
-to the pool dtype before the V product; the kernel keeps an online softmax
-in f32 and never rounds the probabilities. In f32 they differ by
-summation order only. In bf16 each rounded probability is off by at most
-2^-9 relative, which moves the output by at most 2^-9·max|V| (the
-probabilities sum to 1), and each side rounds its output to bf16 (half an
-ulp, 2^-9 relative, each): hence ``BF16_TOL_PER_MAX_V = 2^-7`` below, a
-bound on ``max|kernel − plain| / max|V|`` with room for f32 noise.
+Quantized pools: each K and V row is dequantized as the JAX package's
+gather path and ``_kernel_body_quant`` do it — payload × scale in f32,
+rounded to the MODEL dtype (q's), then widened to f32 for the products.
+The kernel and the plain version form these values bit for bit alike; from
+there the quantized function is K3's over the dequantized rows.
+
+Numerics of the kernel against the plain version (K3 and K4 alike): the
+plain version, like the TPU kernel, normalises the softmax in f32 and
+rounds the probabilities to the dtype of the V rows (the pool dtype for
+K3, the model dtype for K4) before the V product; the kernel keeps an
+online softmax in f32 and never rounds the probabilities. In f32 they
+differ by summation order only. In bf16 (8 significant bits: rounding
+moves a value by at most u = 2^-8 of it) each rounded probability p_j
+moves by at most u·p_j, which moves output element d by at most
+u·M_d, M_d = Σ_j p_j·|v_jd| (the plain version's ``mass``); then each
+side rounds its f32 output to bf16, by at most u of it, and the
+kernel's f32 output is within u·M_d of the plain one's. In all
+|kernel − plain| ≤ u·(1 + u)·M_d + 2u·|out_d|/(1 − u) plus f32 noise
+(summation order, ≈ 1e-5 of M_d). ``tolerance`` holds each bf16 element
+to ``BF16_UNIT·BF16_MARGIN·(M_d + 2·|out_d|)``, BF16_MARGIN = 1 + 2^-4
+covering the u² terms and the f32 noise. At decode, where a row averages
+hundreds of keys, M_d ≈ 0.8 of the keys' |V| scale while its largest |V|
+is ≈ 4 of it, so this is 5–20× tighter than a bound on the row's
+max|V|. f32 elements are held per row to ``F32_TOL`` of the largest |V|
+the row attends; every element also gets ``F32_TOL·ROW_FLOOR`` of the
+call's largest live |V|, so that values near 0 keep a bound above f32
+noise. K3's check, from its own slice, holds its whole output to
+``BF16_TOL_PER_MAX_V = 2^-7`` of the call's largest |V|.
 """
 from __future__ import annotations
 
@@ -38,9 +61,11 @@ import ctypes
 import torch
 
 from ..models.llama import f32_scale
+from ..quant.codec import dequantize_lastdim
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
-           "LAUNCHES", "F32_TOL", "BF16_TOL_PER_MAX_V", "SUPPORTED_HEAD_DIMS"]
+           "tolerance", "LAUNCHES", "F32_TOL", "BF16_TOL_PER_MAX_V",
+           "BF16_UNIT", "BF16_MARGIN", "ROW_FLOOR", "SUPPORTED_HEAD_DIMS"]
 
 # kernel launches by wrapper name; chip_smoke.py zeroes it before the main
 # path and reads it after
@@ -48,53 +73,136 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 # |kernel − plain| bounds (see the module docstring): f32 differs by
 # summation order (inputs of order 1); bf16 by probability and output
-# rounding, relative to max|V|
+# rounding — relative to the call's max|V| (K3's check) or, element by
+# element, to Σ_j p_j·|v_j| and |out| (``tolerance``, K4's check)
 F32_TOL = 1e-4
 BF16_TOL_PER_MAX_V = 2.0 ** -7
+BF16_UNIT = 2.0 ** -8          # bf16 rounding moves a value by ≤ this of it
+BF16_MARGIN = 1.0 + 2.0 ** -4
+# share of the call's max|V| that scales every element's floor
+# (``tolerance``), so that values near 0 keep a bound above f32 noise
+ROW_FLOOR = 2.0 ** -8
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PAYLOAD_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 
-def ragged_paged_attention_reference(q, k_pool, v_pool, block_table, q_lens,
-                                     kv_lens, *, page_size: int):
-    """The plain PyTorch version: gather every block-table page, f32 logits
-    times 1/sqrt(hd), the mask ``col < kv_len & col <= kv_len − q_len +
-    qpos`` filled with -1e30 over the full static width, f32 softmax cast
-    to the pool dtype, V rows at or past ``kv_len`` zeroed, f32
-    accumulation. Rows are grouped ``qpos*groups + gi`` as in the TPU
-    kernel, so a GQA group shares one kv head."""
+def _check_scales(k_scale, v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("quantized pools need BOTH k_scale and v_scale "
+                         "(got exactly one)")
+
+
+def _gather(pool, scale, block_table, out_dtype):
+    """Every block-table page of ``pool`` as [B, R, KV, hd] rows, R =
+    Pmax·page_size; a quantized pool (``scale`` given) comes back
+    dequantized to ``out_dtype``."""
+    B = block_table.shape[0]
+    _, _, KV, hd = pool.shape
+    bt = block_table.long()
+    rows = pool[bt].reshape(B, -1, KV, hd)
+    if scale is not None:
+        rows = dequantize_lastdim(rows, scale[bt].reshape(B, -1, KV),
+                                  out_dtype)
+    return rows
+
+
+def _masks(q, R, q_lens, kv_lens, groups):
+    """(live [B,1,1,R], valid [B,1,S,R]) for the regrouped query rows
+    S = Qmax·groups: column j is live when j < kv_len, and valid for row
+    s when also j <= kv_len − q_len + s // groups."""
+    span = q.shape[1] * groups
+    dev = q.device
+    cols = torch.arange(R, device=dev)
+    qpos = torch.arange(span, device=dev) // groups
+    kv_len = kv_lens.to(dev).long()[:, None, None, None]
+    q_len = q_lens.to(dev).long()[:, None, None, None]
+    live = cols[None, None, None, :] < kv_len
+    valid = live & (cols[None, None, None, :]
+                    <= kv_len - q_len + qpos[None, None, :, None])
+    return live, valid
+
+
+def _ungroup(x, B, KV, q_max, groups):
+    """[B, KV, Qmax·groups, ...] → [B, Qmax, H, ...] (row s = qpos·groups
+    + gi of kv head k is query head k·groups + gi)."""
+    return x.reshape(B, KV, q_max, groups, *x.shape[3:]) \
+        .permute(0, 2, 1, 3, *range(4, x.dim() + 1)) \
+        .reshape(B, q_max, KV * groups, *x.shape[3:])
+
+
+def _plain(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size,
+           k_scale, v_scale, bound_terms=False):
+    """The plain version's work: its output [B, Qmax, H, hd] in q.dtype,
+    and with ``bound_terms`` also (mass = Σ_j p_j·|v_j| per output
+    element, f32, 0 where the output is 0 by rule; the largest |V| among
+    the columns each row attends [B, Qmax, H, 1] f32; the call's largest
+    live |V|)."""
+    _check_scales(k_scale, v_scale)
     B, q_max, H, hd = q.shape
     _, ps, KV, _ = k_pool.shape
     if ps != page_size:
         raise ValueError(f"pool page size {ps} != page_size {page_size}")
     groups = H // KV
     span = q_max * groups
-    R = block_table.shape[1] * ps
-    bt = block_table.long()
-    kc = k_pool[bt].reshape(B, R, KV, hd)
-    vc = v_pool[bt].reshape(B, R, KV, hd)
+    kc = _gather(k_pool, k_scale, block_table, q.dtype)
+    vc = _gather(v_pool, v_scale, block_table, q.dtype)
     qh = q.reshape(B, q_max, KV, groups, hd).permute(0, 2, 1, 3, 4) \
         .reshape(B, KV, span, hd)
     logits = torch.einsum("bksd,brkd->bksr", qh.to(torch.float32),
                           kc.to(torch.float32)) * f32_scale(hd)
-    dev = q.device
-    cols = torch.arange(R, device=dev)
-    qpos = torch.arange(span, device=dev) // groups
-    kv_len = kv_lens.to(dev).long()[:, None, None, None]
-    q_len = q_lens.to(dev).long()[:, None, None, None]
-    live = cols[None, None, None, :] < kv_len                   # [B,1,1,R]
-    valid = live & (cols[None, None, None, :]
-                    <= kv_len - q_len + qpos[None, None, :, None])
+    live, valid = _masks(q, kc.shape[1], q_lens, kv_lens, groups)
     logits = logits.masked_fill(~valid, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(v_pool.dtype)
-    vz = vc.masked_fill(~live[:, 0, 0, :, None, None], 0)
-    out = torch.einsum("bksr,brkd->bksd", probs.to(torch.float32),
-                       vz.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    vz = vc.masked_fill(~live[:, 0, 0, :, None, None], 0).to(torch.float32)
+    out = torch.einsum("bksr,brkd->bksd", probs.to(vc.dtype)
+                       .to(torch.float32), vz)
+    q_len = q_lens.to(q.device).long()[:, None, None, None]
     keep = valid.any(dim=-1, keepdim=True) & (q_len > 0)        # [B,KV,S,1]
     out = out.masked_fill(~keep, 0).to(q.dtype)
-    return out.reshape(B, KV, q_max, groups, hd).permute(0, 2, 1, 3, 4) \
-        .reshape(B, q_max, H, hd)
+    if not bound_terms:
+        return _ungroup(out, B, KV, q_max, groups)
+    mass = torch.einsum("bksr,brkd->bksd", probs, vz.abs()) \
+        .masked_fill(~keep, 0)
+    vmax = vz.abs().amax(-1).permute(0, 2, 1)[:, :, None, :]    # [B,KV,1,R]
+    row = torch.where(valid, vmax, torch.zeros_like(vmax)).amax(-1)
+    return (_ungroup(out, B, KV, q_max, groups),
+            _ungroup(mass, B, KV, q_max, groups),
+            _ungroup(row, B, KV, q_max, groups)[..., None],
+            float(vmax.max()) if vmax.numel() else 0.0)
+
+
+def ragged_paged_attention_reference(q, k_pool, v_pool, block_table, q_lens,
+                                     kv_lens, *, page_size: int,
+                                     k_scale=None, v_scale=None):
+    """The plain PyTorch version: gather every block-table page (and, for
+    quantized pools, its scale page, dequantized to q.dtype), f32 logits
+    times 1/sqrt(hd), the mask ``col < kv_len & col <= kv_len − q_len +
+    qpos`` filled with -1e30 over the full static width, f32 softmax cast
+    to the dtype of the V rows, V rows at or past ``kv_len`` zeroed, f32
+    accumulation. Rows are grouped ``qpos*groups + gi`` as in the TPU
+    kernel, so a GQA group shares one kv head."""
+    return _plain(q, k_pool, v_pool, block_table, q_lens, kv_lens,
+                  page_size, k_scale, v_scale)
+
+
+def tolerance(q, k_pool, v_pool, block_table, q_lens, kv_lens, *,
+              page_size: int, k_scale=None, v_scale=None):
+    """Bound on |kernel − plain| for each element of the output of the
+    same call, [B, Qmax, H, hd] f32. bf16: ``BF16_UNIT·BF16_MARGIN·(M +
+    2·|out|)``, M = Σ_j p_j·|v_j| of the element; f32: ``F32_TOL`` times
+    the largest |V| among the columns the element's row attends; both
+    plus ``F32_TOL·ROW_FLOOR`` of the call's largest live |V|. V is
+    dequantized for a quantized pool. See the module docstring for the
+    derivation."""
+    out, mass, row, top = _plain(q, k_pool, v_pool, block_table, q_lens,
+                                 kv_lens, page_size, k_scale, v_scale,
+                                 bound_terms=True)
+    floor = F32_TOL * ROW_FLOOR * top
+    if q.dtype == torch.float32:
+        return (F32_TOL * row + floor).expand(out.shape)
+    return BF16_UNIT * BF16_MARGIN * (mass + 2 * out.float().abs()) + floor
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_table, q_lens, kv_lens,
@@ -103,19 +211,21 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, q_lens, kv_lens,
 
     q           [B, Qmax, H, hd] — slot b's rows [0, q_lens[b]) are queries
                 at absolute positions kv_lens[b] − q_lens[b] + r.
-    k/v_pool    [num_pages, page_size, KV, hd] — the paged KV pool.
+    k/v_pool    [num_pages, page_size, KV, hd] — the paged KV pool, in
+                q.dtype, or int8 / float8_e4m3fn with the scales below.
     block_table [B, Pmax] int32 — logical → physical page map per slot.
     q_lens      [B] int32 — 0 skips the slot (its output is zeros).
     kv_lens     [B] int32 — live context rows (attend rows < kv_lens[b]).
+    k/v_scale   [num_pages, page_size, KV] f32 — the per-(page, row, kv
+                head) scales of a quantized pool; both or neither.
 
     Returns [B, Qmax, H, hd] in q.dtype. CPU tensors run the plain
-    version; CUDA tensors run the kernel or raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV pools (k_scale/v_scale) need kernel K4, "
-            "ops/ragged_attention.py::_kernel_body_quant of the JAX "
-            "package, which is not ported yet")
-    tensors = (q, k_pool, v_pool, block_table, q_lens, kv_lens)
+    version; CUDA tensors run the kernel (K3, or K4 with scales) or
+    raise."""
+    _check_scales(k_scale, v_scale)
+    tensors = [q, k_pool, v_pool, block_table, q_lens, kv_lens]
+    if k_scale is not None:
+        tensors += [k_scale, v_scale]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"ragged_paged_attention: tensors on several "
@@ -124,16 +234,19 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, q_lens, kv_lens,
     if dev.type == "cpu":
         return ragged_paged_attention_reference(
             q, k_pool, v_pool, block_table, q_lens, kv_lens,
-            page_size=page_size)
+            page_size=page_size, k_scale=k_scale, v_scale=v_scale)
     if dev.type != "cuda":
         raise ValueError(f"ragged_paged_attention: unsupported device {dev}")
     return _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens,
-                   int(page_size))
+                   int(page_size), k_scale, v_scale)
 
 
-def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size):
-    """Validate what the kernel takes, allocate the output, launch on the
-    current stream and raise on a launch error."""
+def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size,
+            k_scale=None, v_scale=None):
+    """Validate what the kernel takes, allocate the output, launch K3 (or
+    K4 when the scales are given) on the current stream and raise on a
+    launch error."""
+    quant = k_scale is not None
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"ragged_paged_attention: q {tuple(q.shape)}, "
                          f"pools {tuple(k_pool.shape)} / "
@@ -147,8 +260,22 @@ def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size):
                          f"{SUPPORTED_HEAD_DIMS}")
     if KV < 1 or H % KV:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q must be one of {list(_DTYPE_CODE)}, got "
+                        f"{q.dtype}")
+    if quant:
+        if k_pool.dtype not in _PAYLOAD_CODE or v_pool.dtype != k_pool.dtype:
+            raise TypeError(f"quantized pools must share one payload dtype "
+                            f"in {list(_PAYLOAD_CODE)}; got {k_pool.dtype}, "
+                            f"{v_pool.dtype}")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {t.dtype}")
+            if t.shape != k_pool.shape[:3]:
+                raise ValueError(f"{name} shape {tuple(t.shape)} != pool "
+                                 f"pages, rows, kv heads "
+                                 f"{tuple(k_pool.shape[:3])}")
+    elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"q/pools must share one dtype in "
                         f"{list(_DTYPE_CODE)}; got {q.dtype}, "
                         f"{k_pool.dtype}, {v_pool.dtype}")
@@ -159,12 +286,14 @@ def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size):
                     ("kv_lens", kv_lens)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_table", block_table), ("q_lens", q_lens),
-                    ("kv_lens", kv_lens)):
+    dense = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool)]
+    if quant:
+        dense += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in dense + [("block_table", block_table),
+                            ("q_lens", q_lens), ("kv_lens", kv_lens)]:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+    for name, t in dense:
         if t.data_ptr() % 16:       # the kernel's vector loads
             raise ValueError(f"{name} must be 16-byte aligned")
     if B == 0 or q_max == 0:
@@ -173,17 +302,29 @@ def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size):
     from . import _build
     lib = _build.load("ragged_paged_attention")
     out = torch.empty_like(q)
+    common = (B, q_max, H, KV, hd, ps, block_table.shape[1],
+              *q.stride()[:3], *k_pool.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rpa_launch(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[q.dtype],
-            B, q_max, H, KV, hd, ps, block_table.shape[1],
-            *q.stride()[:3], *k_pool.stride()[:3], *out.stride()[:3],
-            block_table.stride(0), ctypes.c_float(f32_scale(hd)), stream)
+        if quant:
+            err = lib.rpa_quant_launch(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(),
+                block_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
+                out.data_ptr(), _DTYPE_CODE[q.dtype],
+                _PAYLOAD_CODE[k_pool.dtype], *common,
+                *k_scale.stride()[:2], block_table.stride(0),
+                ctypes.c_float(f32_scale(hd)), stream)
+        else:
+            err = lib.rpa_launch(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
+                out.data_ptr(), _DTYPE_CODE[q.dtype], *common,
+                block_table.stride(0), ctypes.c_float(f32_scale(hd)), stream)
+    name = "ragged_paged_attention_quant" if quant \
+        else "ragged_paged_attention"
     if err != 0:
-        raise RuntimeError(f"ragged_paged_attention kernel launch failed: "
+        raise RuntimeError(f"{name} kernel launch failed: "
                            f"cudaError {err} ({_build.error_string(err)})")
-    LAUNCHES["ragged_paged_attention"] += 1
+    LAUNCHES[name] += 1
     return out

@@ -4,22 +4,33 @@ The port's ``ragged_paged_attention`` on CPU tensors runs its plain
 PyTorch version; here it is held to the JAX kernel run as the JAX
 package's own tests run it on the CPU (``interpret=True``), on the same
 numpy inputs, for decode, ragged prefill, suffix and q_len=0 rows, at
-groups 1 and 2, in f32.
+groups 1 and 2: K3 in f32 over pools in the model dtype, K4's plain
+version over int8 and fp8 pools with f32 scales, in f32 and bf16.
 
-Tolerance: 1e-5 absolute on outputs of order 1. Both sides compute f32
-logits and an f32 softmax; they differ only in summation order (the JAX
-package's own bitwise test already misses by 1.19e-7), so 1e-5 is ~100x
-that noise and far below any masking or indexing error (order 0.1).
+Tolerance: 1e-5 absolute on outputs of order 1 in f32. Both sides compute
+f32 logits and an f32 softmax; they differ only in summation order (the
+JAX package's own bitwise test already misses by 1.19e-7), so 1e-5 is
+~100x that noise and far below any masking or indexing error (order 0.1).
+In bf16 both sides dequantize to the same bf16 values and round the
+probabilities and the output to bf16; an f32 summation-order difference
+can flip the output's rounding by one bf16 ulp, at most 2^-7 of |out|:
+each element is held to 2^-7 of its own |out| (plus 1e-6 for zeros).
+On these inputs the two sides agree bit for bit, so the bound leaves
+room only for such a flip, not for a missed rounding of the dequantized
+K/V or of the probabilities (≈ 2^-9 of |out| on average, but over many
+elements).
 """
 import ast
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu.ops import ragged_attention as jra
+from paddle_tpu.quant import codec as jc
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.models.llama_decode import _cached_attention_slots
 from paddle_tpu_torch.ops import _build
@@ -39,10 +50,11 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _case(kind, groups, seed, nan_fill=False):
+def _case(kind, groups, seed, nan_fill=False, with_dead=False):
     """Random pool + block table for one row kind; dead rows (past kv_len
     in a live page, unmapped pages, the scratch page) hold NaN when
-    ``nan_fill`` and zeros otherwise."""
+    ``nan_fill`` and zeros otherwise. ``with_dead`` also returns the dead
+    rows' mask [num_pages, page_size]."""
     rng = np.random.RandomState(seed)
     KV = 2
     H = KV * groups
@@ -62,6 +74,7 @@ def _case(kind, groups, seed, nan_fill=False):
     kp = np.full((npool, PS, KV, HD), fill, np.float32)
     vp = np.full((npool, PS, KV, HD), fill, np.float32)
     bt = np.zeros((B, PMAX), np.int32)           # unmapped -> scratch 0
+    dead = np.ones((npool, PS), bool)
     page = 1
     for b in range(B):
         for j in range(-(-int(kv_lens[b]) // PS)):
@@ -69,8 +82,11 @@ def _case(kind, groups, seed, nan_fill=False):
             live = min(PS, int(kv_lens[b]) - j * PS)
             kp[page, :live] = rng.randn(live, KV, HD)
             vp[page, :live] = rng.randn(live, KV, HD)
+            dead[page, :live] = False
             page += 1
     q = rng.randn(B, q_max, H, HD).astype(np.float32)
+    if with_dead:
+        return (q, kp, vp, bt, q_lens, kv_lens), dead
     return q, kp, vp, bt, q_lens, kv_lens
 
 
@@ -129,12 +145,119 @@ def test_decode_rows_match_cached_attention_oracle():
     np.testing.assert_allclose(out, ref.numpy(), rtol=0, atol=TOL)
 
 
-def test_quantized_pools_raise():
+def _quant_case(kind, groups, seed, mode, nan_fill=False):
+    """``_case`` with its pools quantized per (row, kv head) by the JAX
+    package's compiled codec (the bits the JAX engine writes; the port's
+    codec writes the same, tests/test_torch_quant.py). With ``nan_fill``
+    every dead row holds a poisoned payload (fp8: NaN, 0x7F; int8: -128,
+    off the grid) and a NaN scale."""
+    (q, kp, vp, bt, ql, kl), dead = _case(kind, groups, seed, with_dead=True)
+    enc = jax.jit(lambda x: jc.quantize_lastdim(x, mode))
+    pools = []
+    for pool in (kp, vp):
+        pay, sc = (np.array(a) for a in enc(jnp.asarray(pool)))
+        if nan_fill:
+            pay.view(np.uint8)[dead] = 0x7F if mode == "fp8" else 0x80
+            sc[dead] = np.nan
+        pools += [pay, sc]
+    return q, pools, bt, ql, kl
+
+
+def _quant_port(q, pools, bt, ql, kl, dtype):
+    kq, ks, vq, vs = pools
+
+    def pay(a):            # the numpy payload's bytes as torch's dtype
+        dt = torch.int8 if a.dtype == np.int8 else torch.float8_e4m3fn
+        return torch.from_numpy(a.view(np.uint8)).view(dt)
+
+    out = tra.ragged_paged_attention(
+        torch.from_numpy(q).to(dtype), pay(kq), pay(vq),
+        torch.from_numpy(bt), torch.from_numpy(ql), torch.from_numpy(kl),
+        page_size=PS, k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs))
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("kind,groups", [("decode", 1), ("prefill", 2),
+                                         ("suffix", 2), ("decode", 2)])
+def test_quantized_matches_jax_interpret(kind, groups, mode, dtype):
+    """K4's plain version against the JAX package's quantized kernel
+    (``_kernel_body_quant``) in interpret mode, same payloads and scales."""
+    q, pools, bt, ql, kl = _quant_case(kind, groups, seed=groups + 5, mode=mode)
+    kq, ks, vq, vs = pools
+    ref = np.asarray(jra.ragged_paged_attention(
+        jnp.asarray(q).astype(dtype), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(bt), jnp.asarray(ql), jnp.asarray(kl), page_size=PS,
+        interpret=True, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        .astype(jnp.float32))
+    out = _quant_port(q, pools, bt, ql, kl, getattr(torch, dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, rtol=0, atol=TOL)
+    else:                                   # one bf16 ulp of each element
+        np.testing.assert_allclose(out, ref, rtol=2.0 ** -7, atol=1e-6)
+    for b in np.flatnonzero(ql == 0):
+        assert (out[b] == 0).all()          # q_len = 0 slot: zeros
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("kind", ["decode", "prefill", "suffix"])
+def test_quantized_nan_dead_rows_never_leak(kind, mode):
+    """Poisoned payloads and NaN scales in every dead row (the tail of
+    each live page, unmapped pages, the scratch page) give the same,
+    finite output as clean dead rows."""
+    for dtype in (torch.float32, torch.bfloat16):
+        clean = _quant_port(*_quant_case(kind, 2, seed=7, mode=mode),
+                            dtype=dtype)
+        poisoned = _quant_port(*_quant_case(kind, 2, seed=7, mode=mode,
+                                            nan_fill=True), dtype=dtype)
+        assert np.isfinite(poisoned).all()
+        np.testing.assert_array_equal(poisoned, clean)
+
+
+@pytest.mark.parametrize("which", ["k_scale", "v_scale"])
+def test_exactly_one_scale_raises(which):
+    """Both scales or neither, as the JAX package's ValueError: one
+    missing scale would read raw payloads as numbers."""
     args = [torch.from_numpy(a) for a in _case("decode", 1, seed=0)]
-    with pytest.raises(NotImplementedError, match="K4"):
-        tra.ragged_paged_attention(*args, page_size=PS,
-                                   k_scale=torch.ones(1),
-                                   v_scale=torch.ones(1))
+    scale = torch.ones(args[1].shape[:3])
+    for fn in (tra.ragged_paged_attention,
+               tra.ragged_paged_attention_reference):
+        with pytest.raises(ValueError, match="BOTH"):
+            fn(*args, page_size=PS, **{which: scale})
+
+
+def test_tolerance_is_per_row():
+    """``tolerance``: in f32 each output row's bound scales with the
+    largest |V| that row attends, plus F32_TOL·ROW_FLOOR of the call's
+    largest live |V|; in bf16 each element's bound is BF16_UNIT·
+    BF16_MARGIN·(Σ_j p_j·|v_j| + 2·|out|) plus the same floor."""
+    q, kp, vp, bt, ql, kl = (torch.from_numpy(a)
+                             for a in _case("prefill", 2, seed=9))
+    vp[1, 0] *= 100.0                       # slot 0's first row, both heads
+    bound = tra.tolerance(q, kp, vp, bt, ql, kl, page_size=PS)
+    assert bound.shape == q.shape
+    top = float(vp[1, 0].abs().max())
+    floor = tra.F32_TOL * tra.ROW_FLOOR * top
+    # every query row of slot 0 attends its row 0; slot 1's rows do not
+    assert (bound[0, :5] >= tra.F32_TOL * float(vp[1, 0].abs().amax(-1)
+                                                .min())).all()
+    assert (bound[1] < tra.F32_TOL * top / 10).all()
+    assert (bound[1] >= floor * 0.999).all()
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    bound = tra.tolerance(qb, kb, vb, bt, ql, kl, page_size=PS)
+    out = tra.ragged_paged_attention_reference(qb, kb, vb, bt, ql, kl,
+                                               page_size=PS).float()
+    # Σ_j p_j·|v_j| lies between |out| and the largest |V| the row attends
+    unit = tra.BF16_UNIT * tra.BF16_MARGIN
+    floor = tra.F32_TOL * tra.ROW_FLOOR * float(vb[1, 0].float().abs().max())
+    assert (bound >= unit * (3 - 2.0 ** -7) * out.abs() + floor * 0.999).all()
+    rows = vb.float().abs().max()
+    assert (bound <= unit * (rows + 2 * out.abs()) + floor * 1.001).all()
+    # slot 1 never attends the big row, and its bound does not see it
+    assert float(bound[1].max()) < unit * top / 10
 
 
 def test_mixed_devices_raise():
@@ -149,6 +272,8 @@ def test_mixed_devices_raise():
     ("dtype", TypeError), ("table_dtype", TypeError),
     ("head_dim", ValueError), ("page_size", ValueError),
     ("contiguous", ValueError), ("lens_shape", ValueError),
+    ("payload_dtype", TypeError), ("scale_dtype", TypeError),
+    ("scale_shape", ValueError), ("scale_contiguous", ValueError),
 ])
 def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(bad, exc):
     """The CUDA wrapper validates before it builds or launches anything;
@@ -156,7 +281,21 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(bad, exc):
     q, kp, vp, bt, ql, kl = (torch.from_numpy(a)
                              for a in _case("decode", 2, seed=0))
     page_size = PS
-    if bad == "dtype":
+    scales = {}
+    if bad.startswith(("payload", "scale")):     # K4's wrapper
+        kp, vp = kp.to(torch.int8), vp.to(torch.int8)
+        scales = dict(k_scale=torch.ones(kp.shape[:3]),
+                      v_scale=torch.ones(kp.shape[:3]))
+    if bad == "payload_dtype":
+        vp = vp.to(torch.float8_e4m3fn)
+    elif bad == "scale_dtype":
+        scales["v_scale"] = scales["v_scale"].double()
+    elif bad == "scale_shape":
+        scales["k_scale"] = scales["k_scale"][:, :, :1]
+    elif bad == "scale_contiguous":
+        scales["k_scale"] = torch.ones(kp.shape[2], kp.shape[1],
+                                       kp.shape[0]).permute(2, 1, 0)
+    elif bad == "dtype":
         q = q.double()
     elif bad == "table_dtype":
         bt = bt.long()
@@ -170,7 +309,7 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(bad, exc):
     elif bad == "lens_shape":
         ql = ql[:2]
     with pytest.raises(exc):
-        tra._launch(q, kp, vp, bt, ql, kl, page_size)
+        tra._launch(q, kp, vp, bt, ql, kl, page_size, **scales)
 
 
 def test_kernel_source_builds_with_nvcc_and_plain_c():
@@ -182,12 +321,16 @@ def test_kernel_source_builds_with_nvcc_and_plain_c():
     src = (_build.CSRC / "ragged_paged_attention.cu").read_text()
     assert "torch/" not in src and "extension.h" not in src
     assert 'extern "C"' in src and "rpa_launch" in src
+    assert "rpa_quant_launch" in src and "cuda_fp8.h" in src
     tree = ast.parse(pathlib.Path(_build.__file__).read_text())
     assert "load" in {n.name for n in tree.body
                       if isinstance(n, ast.FunctionDef)}
     argtypes, restype = _build.SIGNATURES["ragged_paged_attention"][
         "rpa_launch"]
     assert len(argtypes) == 27
+    argtypes, restype = _build.SIGNATURES["ragged_paged_attention"][
+        "rpa_quant_launch"]
+    assert len(argtypes) == 32
     gitignore = (pathlib.Path(__file__).parents[1] / ".gitignore") \
         .read_text().split()
     assert "build/" in gitignore

@@ -2,9 +2,18 @@
 JAX package's ``ContinuousBatcher(kv_layout="ragged")`` on the same
 weights, at the engine geometry of tests/test_ragged_attention.py: greedy
 tokens must be identical for staggered mixed-length requests, and still
-be under a mid-flight preemption forced by a small pool. Also the port's
-device rules: with no GPU, every entry point raises unless the caller
-passes ``device="cpu"``.
+be under a mid-flight preemption forced by a small pool — with pages in
+the model dtype and with int8 and fp8 pages (``kv_dtype``). Also the
+port's device rules: with no GPU, every entry point raises unless the
+caller passes ``device="cpu"``.
+
+Quantized pages in a bf16 model: XLA and PyTorch round some bf16
+products differently on the CPU (one bf16 ulp in a layer's K, even with
+unquantized pages), and an int8 or fp8 code can flip on such an ulp. The
+two engines then agree token for token wherever the top two logits are
+further apart than that noise, as for every token of these requests;
+other prompts on the same weights can meet a near-tie (one was found at a
+top-two gap of 5.5e-5 on logits near 0.42) and part there.
 """
 import jax
 import numpy as np
@@ -142,15 +151,15 @@ def test_page_accounting_matches_jax(models, live):
     assert tp.page_bytes(tcfg, 8) == jp.page_bytes(jcfg, 8)
     assert tp.paged_kv_bytes_per_token(tcfg, 5, 8, live_tokens=live) == \
         jp.paged_kv_bytes_per_token(jcfg, 5, 8, live_tokens=live)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tp.page_bytes(tcfg, 8, kv_dtype="int8")
+    for kv_dtype in ("int8", "fp8"):
+        assert tp.page_bytes(tcfg, 8, kv_dtype) \
+            == jp.page_bytes(jcfg, 8, kv_dtype=kv_dtype)
 
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(kv_layout="paged"), NotImplementedError),
     (dict(kv_layout="dense"), NotImplementedError),
     (dict(kv_layout="bogus"), ValueError),
-    (dict(kv_dtype="int8"), NotImplementedError),
     (dict(precision="int8"), NotImplementedError),
     (dict(prefix_cache_pages=4), NotImplementedError),
     (dict(spec_decode=True), NotImplementedError),
@@ -159,6 +168,100 @@ def test_unported_options_raise(models, kw, exc):
     _, _, tcfg, tparams = models
     with pytest.raises(exc):
         ContinuousBatcher(tcfg, tparams, device="cpu", **{**GEOMETRY, **kw})
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_staggered_tokens_identical_to_jax(models, kv_dtype):
+    """int8 / fp8 pages, f32 model: the port's engine (K4's plain version
+    on the CPU) emits the JAX engine's greedy tokens exactly, across
+    staggered admissions, and drains its pool."""
+    jcfg, jparams, tcfg, tparams = models
+    ref = _serve(JaxBatcher(jcfg, jparams, kv_layout="ragged",
+                            kv_dtype=kv_dtype, **GEOMETRY), WAVES)
+    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype, device="cpu",
+                            **GEOMETRY)
+    out = _serve(eng, WAVES)
+    assert out == ref
+    assert eng.pages_in_use == 0
+    assert eng.stats["prefill_bursts"] >= 2
+    assert eng._cache["k_scale"][0].dtype == torch.float32
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_preemption_tokens_identical_to_jax(models, kv_dtype):
+    """The JAX package's quantized preemption recipe: two 30-token budgets
+    over 7 usable pages with burst 8 force a mid-flight preemption on
+    both sides; requantized restarts stay token-identical."""
+    jcfg, jparams, tcfg, tparams = models
+    geo = {**GEOMETRY, "burst": 8}
+    waves = [_requests(41, [(5, 30), (5, 30)])]
+    jeng = JaxBatcher(jcfg, jparams, kv_layout="ragged", kv_dtype=kv_dtype,
+                      num_pages=8, **geo)
+    ref = _serve(jeng, waves)
+    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype, num_pages=8,
+                            device="cpu", **geo)
+    out = _serve(eng, waves)
+    assert eng.stats["preemptions"] >= 1 and jeng.stats["preemptions"] >= 1
+    assert out == ref
+    assert eng.pages_in_use == 0
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_bf16_tokens_identical_to_jax(kv_dtype):
+    """A bf16 tiny model with int8 / fp8 pages: the staggered requests get
+    the JAX engine's greedy tokens exactly (see the module docstring for
+    why bf16 identity holds only where no two logits nearly tie)."""
+    jcfg = JaxConfig.tiny(num_hidden_layers=2, max_position_embeddings=128,
+                          dtype=jax.numpy.bfloat16)
+    jparams = llama_init_params(jcfg, jax.random.PRNGKey(3))
+    tcfg = tl.LlamaConfig.tiny(num_hidden_layers=2,
+                               max_position_embeddings=128,
+                               dtype=torch.bfloat16)
+    tparams = tl.params_from_jax({k: np.asarray(v)
+                                  for k, v in jparams.items()}, tcfg,
+                                 device="cpu")
+    ref = _serve(JaxBatcher(jcfg, jparams, kv_layout="ragged",
+                            kv_dtype=kv_dtype, **GEOMETRY), WAVES)
+    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype, device="cpu",
+                            **GEOMETRY)
+    assert _serve(eng, WAVES) == ref
+    assert eng._cache["k"][0].dtype != torch.bfloat16
+
+
+@pytest.mark.parametrize("spelling", [None, "", "off", "bf16", "native"])
+def test_unquantized_spellings_have_no_scale_pools(models, spelling):
+    _, _, tcfg, tparams = models
+    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=spelling, device="cpu",
+                            **GEOMETRY)
+    assert eng._kv_dtype is None
+    assert set(eng._cache) == {"k", "v"}
+    assert eng._cache["k"][0].dtype == tcfg.dtype
+
+
+def test_kv_dtype_typo_raises(models):
+    _, _, tcfg, tparams = models
+    with pytest.raises(ValueError, match="int9"):
+        ContinuousBatcher(tcfg, tparams, kv_dtype="int9", device="cpu",
+                          **GEOMETRY)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+def test_pool_hbm_bytes_page_count_matches_jax(models, kv_dtype):
+    """A byte budget buys the JAX engine's page count at each kv_dtype
+    (this f32 model at head_dim 16: a row and kv head costs 64 bytes
+    unquantized, 16 + 4 in int8 or fp8); passing num_pages too raises."""
+    jcfg, jparams, tcfg, tparams = models
+    budget = 37 * tp.page_bytes(tcfg, 8) + 5
+    jeng = JaxBatcher(jcfg, jparams, kv_layout="ragged", kv_dtype=kv_dtype,
+                      pool_hbm_bytes=budget, **GEOMETRY)
+    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype,
+                            pool_hbm_bytes=budget, device="cpu", **GEOMETRY)
+    assert eng._alloc.num_pages == jeng._alloc.num_pages
+    assert eng._cache["k"][0].shape[0] == eng._alloc.num_pages
+    with pytest.raises(ValueError, match="not both"):
+        ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype,
+                          pool_hbm_bytes=budget, num_pages=8, device="cpu",
+                          **GEOMETRY)
 
 
 def test_impossible_requests_rejected_at_enqueue(models):
@@ -196,9 +299,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(models):
 
 def test_chip_smoke_serving_checks_rehearse_on_cpu():
     """chip_smoke.py's serving-phase checks (mid-flight admission, drained
-    pool, bf16 teacher-forced tokens, the f32 engine against dense f32)
-    run end to end on a tiny bf16 model on the CPU, where the ragged
-    wrapper takes its plain version and so counts no kernel launch."""
+    pool, bf16 teacher-forced tokens, the f32 engine against dense f32,
+    the int8-page run with its codec-forced teacher and launch checks, and
+    the f32 engine's int8 and fp8 pools read back against a dense f32
+    forward) run end to end on a tiny bf16 model on the CPU, where the
+    ragged wrapper takes its plain version and so counts no kernel
+    launch — which the quantized run's check of K4's count must then
+    refuse."""
     import dataclasses
     import importlib.util
     import pathlib
@@ -222,3 +329,20 @@ def test_chip_smoke_serving_checks_rehearse_on_cpu():
     assert worst["gap_over_delta"] <= 1 and worst["first_err_over_tol"] <= 1
     assert cs.f32_serving_check(cfg32, params32, reqs, device="cpu") \
         <= cs.F32_DELTA
+    budget = 40 * tp.page_bytes(cfg, 16)
+    with pytest.raises(RuntimeError, match="K4 launches 0"):
+        cs.quantized_serving(cfg, params, cfg32, params32, "int8", budget,
+                             device="cpu")
+    engine, reqs, results, _, _, launches, _ = cs.serve(
+        cfg, params, device="cpu", kv_dtype="int8", pool_hbm_bytes=budget)
+    assert launches == 0 and engine.pages_in_use == 0
+    # head_dim 128: an int8 page costs (128 + 4) / (2·128) of a bf16 one
+    assert engine._alloc.num_pages == 40 * 2 * 128 // 132
+    worst = cs.teacher_forced(cfg, params, cfg32, params32, reqs, results,
+                              device="cpu", kv_dtype="int8")
+    assert worst["gap_over_delta"] <= 1 and worst["first_err_over_tol"] <= 1
+    for kv_dtype in ("int8", "fp8"):
+        worst = cs.f32_pool_check(cfg32, params32, reqs, kv_dtype,
+                                  device="cpu")
+        assert worst["gap"] <= cs.F32_DELTA
+        assert worst["write"] <= 1 and worst["scale"] <= 1

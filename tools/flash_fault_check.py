@@ -3,9 +3,9 @@
 
     python3 tools/flash_fault_check.py
 
-Copies ``paddle_tpu_torch`` into a temporary directory (never into the
-checkout), plants one fault at a time in the copy's
-``ops/csrc/flash_attention.cu``, builds it with nvcc, and runs the three
+Through ``tools/fault_check.py``: plants one fault at a time in a
+temporary copy of ``ops/csrc/flash_attention.cu`` (never in the
+checkout), builds it with nvcc, and runs the three
 flash kernels at the training path's shape (B=1, L=S=2048, H=32, D=128,
 causal; N(0,1) inputs from a seeded numpy generator; f32 and bf16)
 against their plain versions, as phase 6 of ``chip_smoke.py`` does. For
@@ -26,14 +26,11 @@ and every planted fault fails it in both.
 """
 from __future__ import annotations
 
-import json
-import os
-import shutil
-import subprocess
 import sys
-import tempfile
 
 import numpy as np
+
+import fault_check
 
 SEED = 7
 SHAPE = (1, 2048, 2048, 32, 128)          # B, L, S, H, D
@@ -52,12 +49,9 @@ FAULTS = {
 
 
 def measure(device="cuda"):
-    """Run the kernels of the package beside this script's parent
-    directory against their plain versions; print one JSON line
-    {dtype: {output: [max_abs_err, share of the per-row bound, share of
-    the per-tensor bound]}}."""
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    """The kernels of the package beside this script's parent directory
+    against their plain versions: {dtype: {output: [max_abs_err, share of
+    the per-row bound, share of a per-tensor bound]}}."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -86,82 +80,18 @@ def measure(device="cuda"):
             diff = (g.float() - r).abs()
             err = float(diff.max())
             if name == "lse":                 # absolute bound, no rows
-                rows[name] = [err, err / fa.LSE_TOL, err / fa.LSE_TOL]
+                rows[name] = [err, err / fa.LSE_TOL, "absolute"]
                 continue
             tol = fa.tolerance(r, dtype)
             rel = fa.F32_TOL if dtype == torch.float32 else fa.BF16_TOL
+            ten = err / (rel * float(r.abs().max()))
             rows[name] = [err, float(torch.nan_to_num(diff / tol,
                                                       nan=0.0).max()),
-                          err / (rel * float(r.abs().max()))]
+                          f"{ten:.3f} of a per-tensor bound"]
         result[str(dtype)[6:]] = rows
-    print(json.dumps(result))
-    return 0
-
-
-def planted_copy(root, fault):
-    """A temporary copy of the package (and this script) with ``fault``
-    planted in its flash kernel source; returns the copy's directory."""
-    tmp = tempfile.mkdtemp(prefix="flash_fault_")
-    shutil.copytree(os.path.join(root, "paddle_tpu_torch"),
-                    os.path.join(tmp, "paddle_tpu_torch"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    os.makedirs(os.path.join(tmp, "tools"))
-    shutil.copy(os.path.abspath(__file__), os.path.join(tmp, "tools"))
-    if fault is not None:
-        old, new, which = fault
-        src = os.path.join(tmp, "paddle_tpu_torch", "ops", "csrc",
-                           "flash_attention.cu")
-        text = open(src).read()
-        parts = text.split(old)
-        if len(parts) < which + 2:
-            raise RuntimeError(f"fault site {old!r} not found (occurrence "
-                               f"{which})")
-        text = old.join(parts[:which + 1]) + new + old.join(parts[which + 1:])
-        with open(src, "w") as f:
-            f.write(text)
-    return tmp
-
-
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("flash_fault_check: no CUDA device", file=sys.stderr)
-        return 2
-    if "--measure" in sys.argv[1:]:
-        return measure()
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    verdict = {}
-    for name, fault in FAULTS.items():
-        tmp = planted_copy(root, fault)
-        try:
-            proc = subprocess.run(
-                [sys.executable, os.path.join(tmp, "tools",
-                                              os.path.basename(__file__)),
-                 "--measure"], capture_output=True, text=True, timeout=900)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        if proc.returncode != 0:
-            print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
-            raise RuntimeError(f"{name}: the measuring run failed "
-                               f"(exit {proc.returncode})")
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        verdict[name] = {}
-        for dtype, rows in res.items():
-            fails = [o for o, (_, row, _) in rows.items() if row > 1.0]
-            tensor_fails = [o for o, (_, _, ten) in rows.items() if ten > 1.0]
-            verdict[name][dtype] = bool(fails)
-            print(f"[{name}] {dtype}: " + ", ".join(
-                f"{o} err {e:.3e} ({row:.3f} of the per-row bound, "
-                f"{ten:.3f} of a per-tensor bound)"
-                for o, (e, row, ten) in rows.items()), flush=True)
-            print(f"[{name}] {dtype}: fails the per-row bound in "
-                  f"{fails or 'nothing'}; a per-tensor bound would fail "
-                  f"{tensor_fails or 'nothing'}", flush=True)
-    ok = not any(verdict["none"].values()) and all(
-        all(v.values()) for n, v in verdict.items() if n != "none")
-    print(json.dumps({"ok": ok, "fails_per_row_bound": verdict}))
-    return 0 if ok else 1
+    return result
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(fault_check.main(__file__, "flash_attention.cu", FAULTS,
+                              measure))

@@ -55,7 +55,20 @@ the repository. Phases, each failing the run when its check fails:
               against f32 weights, five steps with falling finite losses,
               the K1/K2 launch counts the path implies (2, 1 and 1 per
               layer per step), step time, tokens/s, peak memory, and one
-              profiled step.
+              profiled step;
+8. sparse   — the block-sparse kernels (K5 ``bsa_fwd``; K6 ``bsa_bwd_dq``
+              and ``bsa_bwd_dkv``) against their plain versions on nine
+              patterns (partial 16-blocks, tril, duplicates, a fully
+              covered block, 70-wide blocks, T=127 padded, a ragged last
+              tile, rows and keys outside the pattern, a row masked across
+              a whole tile), f32 and bf16, D 128 and 64; then
+              ``sparse.fused_attention`` forward and backward at B=1,
+              H=32, T=8192, D=128, bf16, under a Longformer mask (window
+              ±256, 64 global tokens) as a sparse CSR tensor, twice: 1/1/1
+              launches a call, one compile, out/dq/dk/dv row by row
+              against the plain versions; and the kernels' times beside
+              their bounds, the plain versions and SDPA with the dense
+              mask.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -1277,6 +1290,345 @@ def serving_phases(cfg):
     return [k3, k4]
 
 
+# --------------------------------------------------------------- phase 8
+BSA_SHAPE = (1, 32, 8192, 128)            # B, H, T, D: Llama-2-7B's width
+LONGFORMER = (256, 64)                    # window ±256, 64 global tokens
+BSA_REPLACES = {
+    "bsa_fwd": "paddle_tpu/ops/block_sparse_attention.py:73",
+    "bsa_bwd_dq": "paddle_tpu/ops/block_sparse_attention.py:192",
+    "bsa_bwd_dkv": "paddle_tpu/ops/block_sparse_attention.py:254",
+}
+
+
+def longformer_pattern(T, window, n_global):
+    """Rows and columns (sorted by row, then column) of the Longformer
+    pattern (arXiv 2004.05150 §3.1): key j is attended by query i when
+    |i − j| <= window, and the first ``n_global`` tokens attend every key
+    and are attended by every query."""
+    i = np.arange(T)
+    lo = np.where(i < n_global, 0, np.maximum(n_global, i - window))
+    hi = np.where(i < n_global, T, np.minimum(T, i + window + 1))
+    glob = np.where(i < n_global, 0, n_global)   # the global keys first
+    per_row = glob + hi - lo
+    rows = np.repeat(i, per_row)
+    start = np.repeat(np.cumsum(per_row) - per_row, per_row)
+    off = np.arange(rows.size) - start
+    g = glob[rows]
+    cols = np.where(off < g, off, lo[rows] + off - g)
+    return rows, cols
+
+
+def band(T, w):
+    i, j = np.meshgrid(np.arange(T), np.arange(T), indexing="ij")
+    keep = np.abs(i - j) <= w
+    return i[keep], j[keep]
+
+
+def bsa_patterns():
+    """(label, T, rows, cols, block): the pattern shapes the kernels must
+    handle, each small enough for the plain version to be quick."""
+    rng = np.random.default_rng(SEED + 8)
+    out = [("band, partial 16-blocks", 1024, *band(1024, 9), 16)]
+    r, c = np.tril_indices(512)
+    out.append(("causal tril", 512, r, c, 128))
+    r = rng.integers(0, 384, 6000)
+    c = rng.integers(0, 384, 6000)
+    out.append(("random with duplicates", 384, np.concatenate([r, r[:2000]]),
+                np.concatenate([c, c[:2000]]), 32))
+    br, bc = band(512, 3)
+    blk = np.arange(128)
+    fr, fc = np.meshgrid(blk + 128, blk + 256, indexing="ij")  # map entry 1
+    out.append(("fully covered block", 512, np.concatenate([br, fr.ravel()]),
+                np.concatenate([bc, fc.ravel()]), 128))
+    r, c = band(560, 40)
+    out.append(("70-wide blocks", 560, r, c, 70))
+    r, c = band(127, 7)                       # T=127 padded to 128
+    out.append(("T=127 padded to 128", 128, r, c, 128))
+    r, c = band(200, 5)
+    out.append(("T=200, ragged last tile", 200, r, c, 8))
+    r, c = band(256, 12)                      # rows >= 100, keys >= 60 out
+    keep = (r < 100) & (c < 60)
+    out.append(("rows and keys outside", 256, r[keep], c[keep], 32))
+    # rows 5 and 6 attend nothing in k tile 0 (mixed for their q tile)
+    # and only keys 150-160 of k tile 2
+    r, c = band(256, 20)
+    keep = (r != 5) & (r != 6)
+    xr, xc = np.meshgrid(np.arange(64), np.arange(150, 161), indexing="ij")
+    out.append(("row masked across a tile", 256,
+                np.concatenate([r[keep], xr.ravel()]),
+                np.concatenate([c[keep], xc.ravel()]), 64))
+    return out
+
+
+def bsa_cases(device="cuda"):
+    """Phase 8 (a): K5 and K6 against their plain versions on every
+    pattern of bsa_patterns, f32 and bf16, D=128 ([B, T, H, D] inputs)
+    and D=64 (the [B, H, T, D] layout read through strides); each output
+    row within ``tolerance``, lse within LSE_TOL where finite, and rows and
+    keys outside the pattern exactly 0 (lse −inf)."""
+    import torch
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(SEED + 9)
+    shares = {}
+    for label, T, rows, cols, block in bsa_patterns():
+        pat = bsa.compile_pattern(rows, cols, T, block, block, device)
+        tm = pat.plan.tile_map
+        row_any = np.zeros(T, bool)
+        row_any[rows] = True
+        key_any = np.zeros(T, bool)
+        key_any[cols] = True
+        row_out = torch.from_numpy(~row_any).to(device)
+        key_out = torch.from_numpy(~key_any).to(device)
+        for D in (128, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                B, H = 2, 2
+
+                def t():
+                    x = rng.standard_normal((B, H, T, D), np.float32)
+                    x = torch.from_numpy(x).to(device, dtype)
+                    return x.transpose(1, 2) if D == 64 else \
+                        x.transpose(1, 2).contiguous()
+
+                q, k, v, do = t(), t(), t(), t()
+                name = f"{label} D={D} {str(dtype)[6:]}"
+                out, lse = bsa.bsa_forward(q, k, v, pat)
+                ref, ref_lse = bsa.bsa_fwd_reference(
+                    q, k, v, pat.block_map, pat.masks, block, block)
+                dq, dk, dv = bsa.bsa_backward(q, k, v, ref, ref_lse, do, pat)
+                grads = bsa.bsa_bwd_reference(q, k, v, ref, ref_lse, do,
+                                              pat.block_map, pat.masks,
+                                              block, block)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                errs = {"out": flash_err(name + " out", out, ref, dtype)}
+                for g, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+                    errs[g] = flash_err(f"{name} {g}", a, r, dtype)
+                dead = torch.isneginf(ref_lse)
+                check(bool((dead == row_out[None, None]).all()),
+                      f"{name}: the plain lse is −inf on other rows than "
+                      "those outside the pattern")
+                check(bool((torch.isneginf(lse) == dead).all()),
+                      f"{name}: lse −inf rows differ")
+                lerr = float((lse[~dead] - ref_lse[~dead]).abs().max())
+                check(lerr <= fa.LSE_TOL, f"{name}: lse err {lerr}")
+                check(bool((out[:, row_out] == 0).all())
+                      and bool((dq[:, row_out] == 0).all()),
+                      f"{name}: rows outside the pattern are not exactly 0")
+                check(bool((dk[:, key_out] == 0).all())
+                      and bool((dv[:, key_out] == 0).all()),
+                      f"{name}: keys outside the pattern are not exactly 0")
+                print(f"  bsa-vs-plain {name:<42} tiles "
+                      f"{int((tm == 1).sum())} full / {int((tm == 2).sum())}"
+                      f" mixed, lse_err={lerr:.2e} " + " ".join(
+                          f"{g}={e:.2e} ({s:.3f})"
+                          for g, (e, s) in errs.items()), flush=True)
+                for g, (_, s) in errs.items():
+                    key = f"{str(dtype)[6:]} {g}"
+                    shares[key] = max(shares.get(key, 0.0), s)
+    print("  worst share of the per-row bound over the cases: " +
+          ", ".join(f"{k} {v:.3f}" for k, v in shares.items()), flush=True)
+    return shares
+
+
+def bsa_path(device="cuda"):
+    """Phase 8 (b): ``sparse.fused_attention`` forward and backward at
+    BSA_SHAPE in bf16 under the Longformer mask as a torch sparse CSR
+    tensor on the card, twice. Checks K5/K6 launches (1/1/1 a call, no K1
+    or K2), one compile for both calls, and out, dq, dk, dv row by row
+    against ``block_sparse_attention_plain`` on the same inputs.
+    Returns (launches, errors, the inputs, the pattern's rows and columns
+    and the compiled pattern), for the timings."""
+    import torch
+    from paddle_tpu_torch import sparse
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, H, T, D = BSA_SHAPE
+    rows, cols = longformer_pattern(T, *LONGFORMER)
+    crows = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=T))])
+    mask = sparse.sparse_csr_tensor(crows, cols,
+                                    np.ones(rows.size, np.float32), (T, T),
+                                    device=device)
+    rng = np.random.default_rng(SEED + 10)
+
+    def t():
+        return torch.from_numpy(rng.standard_normal((B, H, T, D),
+                                                    np.float32)) \
+            .to(device, torch.bfloat16)
+
+    q, k, v = (t().requires_grad_() for _ in range(3))
+    do = t()
+    misses = bsa._get_pattern.cache_info().misses
+    bsa.LAUNCHES.clear()
+    fa.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = sparse.fused_attention(q, k, v, mask)
+    out.backward(do)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fn = mask._bsa_fn_memo[1]
+    grads = [x.grad.clone() for x in (q, k, v)]
+    t0 = time.perf_counter()
+    out2 = sparse.fused_attention(q, k, v, mask)
+    out2.backward(do)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    launches = {n: bsa.LAUNCHES[n] for n in BSA_REPLACES}
+    compiled = bsa._get_pattern.cache_info().misses - misses
+    tm = fn.plan.tile_map
+    print(f"[sparse] fused_attention B={B} H={H} T={T} D={D} bf16, "
+          f"Longformer ±{LONGFORMER[0]} + {LONGFORMER[1]} global: "
+          f"{rows.size} pairs, block {fn.block_q}, "
+          f"{int((fn.block_map > 0).sum())} active blocks of "
+          f"{fn.block_map.size}, masks {fn.masks.numel() / 2 ** 20:.2f} MiB; "
+          f"{bsa.TILE}-tiles: {int((tm > 0).sum())} active, "
+          f"{int((tm == 1).sum())} full, {int((tm == 2).sum())} mixed, "
+          f"{(tm > 0).sum() * bsa.TILE ** 2 / T ** 2:.4f} of T²; two calls "
+          f"{first_s:.3f} s (compile included) and {second_s:.3f} s; "
+          f"launches {launches}, flash {dict(fa.LAUNCHES)}, patterns "
+          f"compiled {compiled}", flush=True)
+    check(launches == {n: 2 for n in BSA_REPLACES},
+          f"launches {launches} over two calls, want 1/1/1 a call")
+    check(not any(fa.LAUNCHES.values()), f"K1/K2 launched: "
+          f"{dict(fa.LAUNCHES)}")
+    check(compiled == 1 and mask._bsa_fn_memo[1] is fn,
+          f"pattern compiled {compiled} times over two calls")
+    check(bool((out == out2).all()), "the second call's out differs")
+    # the plain versions on the same card, [B, T, H, D] as the kernels
+    qs, ks, vs = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    ref = bsa.block_sparse_attention_plain(qs, ks, vs, rows, cols,
+                                           fn.block_q, fn.block_k)
+    ref.backward(do.transpose(1, 2))
+    errs = {}
+    for name, got, want in (("out", out.detach().transpose(1, 2),
+                             ref.detach()),
+                            ("dq", grads[0].transpose(1, 2), qs.grad),
+                            ("dk", grads[1].transpose(1, 2), ks.grad),
+                            ("dv", grads[2].transpose(1, 2), vs.grad)):
+        errs[name] = flash_err(f"fused_attention {name}", got, want,
+                               torch.bfloat16)
+    print("[sparse] against block_sparse_attention_plain: " + ", ".join(
+        f"{n} {e:.3e} ({s:.3f} of the per-row bound)"
+        for n, (e, s) in errs.items()), flush=True)
+    del ref, qs, ks, vs, out, out2
+    return launches, errs, (q.detach(), k.detach(), v.detach(), do), \
+        (rows, cols), fn
+
+
+def bsa_times(inputs, pattern, fn, errs):
+    """Phase 8 (c): bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at the path's shape
+    beside their bounds, the plain versions, and SDPA with the dense
+    boolean [T, T] mask (forward, backward, forward+backward), a yardstick
+    the port never calls. CUDA events, median of 30 after 5 warm-ups."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = (x.transpose(1, 2) for x in inputs)   # [B, T, H, D] views
+    B, T, H, D = q.shape
+    scale = fa._scale(D, None)
+    out, lse = bsa._bsa_fwd(q, k, v, fn, scale)
+    delta = fa._bwd_delta(out, do)
+    fwd_ms = time_ms(lambda: bsa._bsa_fwd(q, k, v, fn, scale))
+    dq_ms = time_ms(lambda: bsa._bsa_bwd_dq(q, k, v, do, lse, delta, fn,
+                                            scale))
+    dkv_ms = time_ms(lambda: bsa._bsa_bwd_dkv(q, k, v, do, lse, delta, fn,
+                                              scale))
+    plain_fwd = time_ms(lambda: bsa.bsa_fwd_reference(
+        q, k, v, fn.block_map, fn.masks, fn.block_q, fn.block_k))
+    plain_bwd = time_ms(lambda: bsa.bsa_bwd_reference(
+        q, k, v, out, lse, do, fn.block_map, fn.masks, fn.block_q,
+        fn.block_k))
+    # the yardstick: dense attention under the pattern as a [T, T] mask
+    dense = torch.zeros((T, T), dtype=torch.bool, device=q.device)
+    dense[tuple(torch.from_numpy(x).to(q.device) for x in pattern)] = True
+    pairs = int(dense.sum())
+    tm = fn.plan.tile_map
+    qs, ks, vs = (x.detach().requires_grad_() for x in inputs[:3])
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=dense))
+    ref = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=dense)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(ref, (qs, ks, vs),
+                                                  inputs[3],
+                                                  retain_graph=True))
+    lib_both = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qs, ks, vs, attn_mask=dense),
+        (qs, ks, vs), inputs[3]))
+    del ref, dense
+    item = 2
+    act = B * T * H * D * item                    # one [B, T, H, D] tensor
+    rows = 4 * B * H * T                          # one f32 per row
+    plan_q = sum(x.numel() * x.element_size() for x in fn.q_plan)
+    plan_k = sum(x.numel() * x.element_size() for x in fn.k_plan)
+    bits = fn.bits.numel() * fn.bits.element_size()
+    hp = B * H * pairs
+    work = {   # (flops, bytes): each input read once, each output written
+        "bsa_fwd": (4 * D * hp, 4 * act + rows + plan_q + bits),
+        "bsa_bwd_dq": (6 * D * hp, 5 * act + 2 * rows + plan_q + bits),
+        "bsa_bwd_dkv": (8 * D * hp, 6 * act + 2 * rows + plan_k + bits),
+    }
+    times = {"bsa_fwd": (fwd_ms, plain_fwd, lib_fwd),
+             "bsa_bwd_dq": (dq_ms, plain_bwd, lib_bwd),
+             "bsa_bwd_dkv": (dkv_ms, plain_bwd, lib_bwd)}
+    shape = (f"B={B} T={T} H={H} D={D} bf16, Longformer ±{LONGFORMER[0]} + "
+             f"{LONGFORMER[1]} global, block {fn.block_q}")
+    recs = {}
+    for name, (flops, nbytes) in work.items():
+        ms, plain_ms, lib_ms = times[name]
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        recs[name] = {"ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes",
+                      "library_ms": lib_ms, "max_abs_err": errs[name],
+                      "shape": shape, "flops": flops, "bytes": nbytes,
+                      "ops_ms": t_ops, "bytes_ms": t_bytes,
+                      "tflops_per_s": flops / ms / 1e9,
+                      "sdpa_fwd_bwd_ms": lib_both,
+                      "tiles": {"active": int((tm > 0).sum()),
+                                "full": int((tm == 1).sum()),
+                                "mixed": int((tm == 2).sum())},
+                      "pairs": pairs}
+        print(f"  {name} {shape}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), bound "
+              f"{recs[name]['bound_ms']:.4f} ms ({recs[name]['bound_by']}; "
+              f"operations {t_ops:.4f}, bytes {t_bytes:.4f}), plain "
+              f"{plain_ms:.4f} ms, sdpa with the dense mask {lib_ms:.4f} ms",
+              flush=True)
+    whole = max(10 * D * hp / PEAK_FLOPS["bfloat16"] * 1e3,
+                (7 * act + 2 * rows + plan_q + plan_k + bits)
+                / HBM_BYTES_PER_S * 1e3)
+    print(f"  K6 whole (bsa_bwd_dq + bsa_bwd_dkv): {dq_ms + dkv_ms:.4f} ms, "
+          f"bound of the whole backward {whole:.4f} ms (5 products), plain "
+          f"{plain_bwd:.4f} ms; sdpa with the dense mask: backward "
+          f"{lib_bwd:.4f} ms, forward+backward {lib_both:.4f} ms; {pairs} "
+          f"pairs", flush=True)
+    return recs
+
+
+def sparse_phase(device="cuda"):
+    """Phase 8: K5/K6 cases, the path at full width, the times. Returns
+    the kernels' records."""
+    import torch
+    torch.cuda.empty_cache()
+    bsa_cases(device)
+    launches, errs, inputs, pattern, fn = bsa_path(device=device)
+    err = {"bsa_fwd": errs["out"][0], "bsa_bwd_dq": errs["dq"][0],
+           "bsa_bwd_dkv": max(errs["dk"][0], errs["dv"][0])}
+    recs = bsa_times(inputs, pattern, fn, err)
+    del inputs, fn
+    torch.cuda.empty_cache()
+    return [{"name": name, "route": "cuda",
+             "source": "paddle_tpu_torch/ops/csrc/block_sparse_attention.cu",
+             "replaces": BSA_REPLACES[name], "launches": launches[name],
+             "launches_per_call": launches[name] // 2, **rec}
+            for name, rec in recs.items()]
+
+
 FLASH_REPLACES = {
     "flash_fwd": "paddle_tpu/ops/flash_attention.py:316",
     "flash_bwd_dq": "paddle_tpu/ops/flash_attention.py:201",
@@ -1354,6 +1706,10 @@ def main() -> int:
                                   "flash_attention.cu",
                         "replaces": FLASH_REPLACES[name],
                         "launches": launches[name], **rec})
+    # 8. block-sparse attention: K5 and K6, sparse.fused_attention
+    t0 = time.perf_counter()
+    records += sparse_phase()
+    phase("sparse", t0)
     phase("total", t_all)
     print(json.dumps({"kernels": records}))
     print(card)

@@ -3,9 +3,10 @@
 The package mirrors ``paddle_tpu``'s module layout (``models/llama.py``,
 ``models/llama_decode.py``, ``models/llama_paged.py``,
 ``models/trainer.py``, ``ops/ragged_attention.py``,
-``ops/flash_attention.py``, ``optimizer/``, ``nn/clip.py``,
-``inference/paging.py``, ``inference/serving.py``) so each port sits beside
-its counterpart's path.
+``ops/flash_attention.py``, ``ops/block_sparse_attention.py``,
+``optimizer/``, ``nn/clip.py``, ``inference/paging.py``,
+``inference/serving.py``, ``sparse/``) so each port sits beside its
+counterpart's path.
 It imports ``torch`` and never ``jax`` or ``paddle_tpu``; only the parity
 tests import both packages.
 

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 (a git-ignored directory) the first time it is needed, then loaded with
 ``ctypes``. No source includes PyTorch's headers: a plain C interface
 builds in seconds, where a PyTorch extension takes minutes. The hash
-covers the source and the flags, so an edited source rebuilds.
+covers the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header rebuilds.
 """
 from __future__ import annotations
 
@@ -50,6 +51,16 @@ SIGNATURES = {
         "flash_bwd_dkv_launch": ([_P] * 8 + [_I] * 7
                                  + [ctypes.c_float, _P, _P], _I),
     },
+    "block_sparse_attention": {
+        # tensor pointers, the tile plan (ptr, ent, bits), dtype, B, T, H,
+        # D, scale, strides, stream
+        "bsa_fwd_launch": ([_P] * 8 + [_I] * 5 + [ctypes.c_float, _P, _P],
+                           _I),
+        "bsa_bwd_dq_launch": ([_P] * 10 + [_I] * 5
+                              + [ctypes.c_float, _P, _P], _I),
+        "bsa_bwd_dkv_launch": ([_P] * 11 + [_I] * 5
+                               + [ctypes.c_float, _P, _P], _I),
+    },
 }
 
 
@@ -66,6 +77,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

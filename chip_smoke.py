@@ -10,24 +10,32 @@ the repository. Phases, each failing the run when its check fails:
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — every kernel source, built with nvcc from the checkout (one
               nvcc per source, started together);
-3. kernels  — the ragged paged-attention kernel (K3) against its plain
-              PyTorch version on the card: decode, ragged prefill, suffix
-              and q_len=0 rows, groups 1 and 4, f32 and bf16 pools, dead
-              pool rows and the scratch page filled with NaN; then the
-              quantized kernel (K4) the same way over int8 and fp8 pools
-              (head dims 128, 64 and 16), dead payload rows poisoned and
-              dead scale rows NaN, each output element within its own
-              bound (``ragged_attention.tolerance``);
+3. kernels  — first the Hopper tile core's launch check: one wgmma tile
+              S = Q·Kᵀ and one P·V product against torch.matmul in f32,
+              exact on integer inputs; then the ragged paged-attention
+              kernel (K3) against its plain PyTorch version on the card:
+              decode, ragged prefill, suffix and q_len=0 rows, groups 1
+              and 4, f32 and bf16 pools, dead pool rows and the scratch
+              page filled with NaN; the quantized kernel (K4) the same way
+              over int8 and fp8 pools (head dims 128, 64 and 16), dead
+              payload rows poisoned and dead scale rows NaN; then the
+              tile path (``rpa_tile_kernel``, which bf16 prefill and
+              suffix rows take) over bf16, int8 and fp8 pages at page
+              sizes 4, 16, 32 and 64, groups 1 and 4, head dims 128 and 64,
+              suffix rows from 2 rows up; every output
+              element within its own bound
+              (``ragged_attention.tolerance``);
 4. serving  — greedy Llama-2-7B (full width, random weights from a seed,
               bf16) through ContinuousBatcher's ragged path: 8 requests, 4
-              slots, admissions mid-flight. Checks K3's launch count, the
-              drained pool, and every emitted token against a
+              slots, admissions mid-flight. Checks K3's launch counts
+              (rpa_kernel once per layer per decode step, rpa_tile_kernel
+              once per layer per prefill-carrying burst), the drained pool, and every emitted token against a
               teacher-forced dense forward of the same weights (bf16, and
               again with the whole engine in f32; the dense forward runs
               the flash kernel K1); profiles one decode burst. Then the
               same 8 requests with int8 and then fp8 pages, sized by
               the bf16 pool's byte budget (``pool_hbm_bytes``): K4's
-              launch count (K3's is 0), the drained pool, every token
+              launch counts (K3's are 0), the drained pool, every token
               against a teacher-forced dense forward whose K/V pass
               through the same codec (coarse), and the pages the budget
               buys; then the engine in f32 with int8 and fp8 pages, its
@@ -35,11 +43,14 @@ the repository. Phases, each failing the run when its check fails:
               attends over it: every token within 1e-3 of its best logit,
               every pool row and scale at the codec of the forward's own
               K/V (``f32_pool_check``);
-5. times    — K3 and K4 (int8 and fp8) at the serving path's decode and
-              prefill shapes beside their byte bounds, their plain
+5. times    — K3 and K4 (int8 and fp8) at the serving path's decode
+              (rpa_kernel) and prefill (rpa_tile_kernel, and rpa_kernel at
+              the same shape) shapes beside their byte bounds, their plain
               versions and scaled_dot_product_attention (a yardstick the
               port never calls; for K4 over K/V dequantized beforehand);
-              CUDA events, median of 30 runs after warm-up;
+              both kernels at suffix rows of 2 to 128 rows, for the
+              dispatch's crossover; CUDA events, median of 30 runs after
+              warm-up;
 6. flash    — the flash kernels (K1 forward; K2 as flash_bwd_dq and
               flash_bwd_dkv) against their plain versions: f32 and bf16,
               causal and not, at the training shape (B=1, L=S=2048, H=32,
@@ -125,6 +136,33 @@ def time_ms(fn, iters=30, warmup=5, device_only=True):
     return statistics.median(runs)
 
 
+def ptxas_by_kernel(log):
+    """(kernel, "Used N registers, ..." line) for each entry function in
+    an nvcc -Xptxas -v log; the kernel is the function's name (the
+    length-prefixed mangled name that ends in "kernel") and its mangled
+    template arguments."""
+    import re
+    out, kernel = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = kernel = m.group(1)
+            for d in re.finditer(r"\d+", fn):   # a hash may run into the
+                for i in range(len(d.group())):  # length's digits
+                    name = fn[d.end():d.end() + int(d.group()[i:])]
+                    if name.endswith("kernel"):
+                        rest = fn[d.end() + len(name):]
+                        kernel = name + (rest[:rest.find("EEv") + 2]
+                                         if rest.startswith("I") else "")
+                        break
+                if kernel != fn:
+                    break
+        elif "Used" in ln and "registers" in ln and kernel:
+            out.append((kernel, ln.split(":", 1)[-1].strip()))
+            kernel = None
+    return out
+
+
 # --------------------------------------------------------------- phase 3
 def make_case(rng, q_lens, kv_lens, H, KV, hd, ps, max_pages, dtype,
               device="cuda"):
@@ -158,12 +196,108 @@ def make_case(rng, q_lens, kv_lens, H, KV, hd, ps, max_pages, dtype,
             dev(np.asarray(kv_lens, np.int32), torch.int32))
 
 
+def wgmma_unit_check(device="cuda"):
+    """The tile core's first launch check (``hopper_wgmma_check``): one
+    64-row tile S = Q·Kᵀ (wgmma m64n64k16, both operands from shared
+    memory) and O = bf16(S)·V (wgmma m64n128k16, P from registers, V
+    MN-major) against torch.matmul in f32. With Q, K, V in {-1, 0, 1}
+    every value is an integer below 2^8 (S) or 2^13 (O), exact in bf16 and
+    f32 on both sides, so any layout or descriptor fault shows as a
+    nonzero error; then N(0,1) inputs, S within 1e-5 of its max (f32
+    summation order) and O against bf16(S)·V of the kernel's own S."""
+    import torch
+    from paddle_tpu_torch.ops import _build
+    lib = _build.load("ragged_paged_attention")
+    rng = np.random.default_rng(SEED + 12)
+
+    def run(q, k, v):
+        s = torch.empty(64, 64, device=device)
+        o = torch.empty(64, 128, device=device)
+        err = lib.hopper_wgmma_check(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+            o.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"wgmma check launch: cudaError {err} "
+              f"({_build.error_string(err)})")
+        torch.cuda.synchronize()
+        return s, o
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-1, 2, shape).astype(
+            np.float32)).to(device, torch.bfloat16)
+
+    q, k, v = ints(64, 128), ints(64, 128), ints(64, 128)
+    s, o = run(q, k, v)
+    s_ref = q.float() @ k.float().T
+    o_ref = s_ref.bfloat16().float() @ v.float()
+    s_err = float((s - s_ref).abs().max())
+    o_err = float((o - o_ref).abs().max())
+    check(s_err == 0 and o_err == 0, f"wgmma exact check: S error {s_err}, "
+          f"O error {o_err}")
+    q, k, v = (torch.from_numpy(rng.standard_normal((64, 128), np.float32))
+               .to(device, torch.bfloat16) for _ in range(3))
+    s, o = run(q, k, v)
+    s_ref = q.float() @ k.float().T
+    o_ref = s.bfloat16().float() @ v.float()
+    s_rel = float((s - s_ref).abs().max() / s_ref.abs().max())
+    o_rel = float((o - o_ref).abs().max() / o_ref.abs().max())
+    print(f"  wgmma unit check: exact S and O errors {s_err} and {o_err}; "
+          f"N(0,1) S {s_rel:.2e}, O {o_rel:.2e} of their max", flush=True)
+    check(s_rel <= 1e-5 and o_rel <= 1e-5, f"wgmma N(0,1) check: S "
+          f"{s_rel}, O {o_rel} of their max")
+    return {"exact_s": s_err, "exact_o": o_err, "s_rel": s_rel,
+            "o_rel": o_rel}
+
+
+def rpa_compare(args, ps, scales=()):
+    """K3 (or K4 with ``scales`` = (k_scale, v_scale)) and its plain
+    version on one case: (kernel output, plain output, max_abs_err, worst
+    share of the bound ``ra.tolerance``: per row in f32, per element in
+    bf16)."""
+    import torch
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    kw = {"page_size": ps}
+    if scales:
+        kw.update(k_scale=scales[0], v_scale=scales[1])
+    out = ra.ragged_paged_attention(*args, **kw)
+    ref = ra.ragged_paged_attention_reference(*args, **kw)
+    diff = (out.float() - ref.float()).abs()
+    bound = ra.tolerance(*args, **kw)
+    share = float(torch.where(diff > 0, diff / bound,
+                              torch.zeros_like(diff)).max())
+    return out, ref, float(diff.max()), share
+
+
+def rpa_check(name, args, ps, scales=(), tag="K3"):
+    """K3/K4 against its plain version on one case: finite outputs, q_len
+    = 0 slots all zeros, and every output element within its bound.
+    Returns (max_abs_err, worst share of the bound)."""
+    import torch
+    out, ref, err, share = rpa_compare(args, ps, scales)
+    check(bool(torch.isfinite(out).all()), f"{name}: kernel output not "
+          "finite")
+    check(bool(torch.isfinite(ref).all()), f"{name}: plain output not finite")
+    for b in torch.nonzero(args[4] == 0).flatten().tolist():
+        check(bool((out[b] == 0).all()), f"{name}: q_len=0 slot {b} not "
+              "zeros")
+    print(f"  {tag}-vs-plain {name:<44} max_abs_err={err:.3e} "
+          f"share of the bound {share:.3f}", flush=True)
+    check(share <= 1.0, f"{name}: |kernel − plain| reaches {share:.3f} of "
+          f"its bound (max_abs_err {err})")
+    return err, share
+
+
 def kernel_cases(device="cuda"):
+    """K3 against its plain version: decode, ragged prefill, suffix and
+    q_len=0 rows, groups 1 and 4, f32 and bf16 pools, each output element
+    within ``ra.tolerance`` (per row in f32, per element in bf16), and
+    f32 outputs also within ``ra.F32_TOL`` absolute, as K3's check held
+    them before it went per element. Returns the worst share of the
+    bound."""
     import torch
     from paddle_tpu_torch.ops import ragged_attention as ra
     rng = np.random.default_rng(SEED)
     ps, hd, max_pages = 16, 128, 64
-    results = []
+    worst = 0.0
     for groups, (H, KV) in ((1, (32, 32)), (4, (32, 8))):
         for dtype in (torch.float32, torch.bfloat16):
             decode_kv = rng.integers(1, 1025, 4)
@@ -176,27 +310,62 @@ def kernel_cases(device="cuda"):
             for kind, (ql, kl) in kinds.items():
                 args = make_case(rng, ql, kl, H, KV, hd, ps, max_pages,
                                  dtype, device)
-                out = ra.ragged_paged_attention(*args, page_size=ps)
-                ref = ra.ragged_paged_attention_reference(*args,
-                                                          page_size=ps)
-                check(bool(torch.isfinite(out).all()),
-                      f"{kind} g{groups} {dtype}: kernel output not finite")
-                check(bool(torch.isfinite(ref).all()),
-                      f"{kind} g{groups} {dtype}: plain output not finite")
-                err = float((out.float() - ref.float()).abs().max())
-                vmax = float(torch.nan_to_num(args[2].float()).abs().max())
-                tol = ra.F32_TOL if dtype == torch.float32 \
-                    else ra.BF16_TOL_PER_MAX_V * vmax
-                zero_slots = [b for b, n in enumerate(ql) if n == 0]
-                for b in zero_slots:
-                    check(bool((out[b] == 0).all()), f"{kind}: q_len=0 slot "
-                          f"{b} not zeros")
                 name = f"{kind} groups={groups} {str(dtype)[6:]}"
-                print(f"  kernel-vs-plain {name:<28} max_abs_err={err:.3e} "
-                      f"tol={tol:.3e}", flush=True)
-                check(err <= tol, f"{name}: max_abs_err {err} > tol {tol}")
-                results.append(err)
-    return results
+                err, share = rpa_check(name, args, ps)
+                check(dtype != torch.float32 or err <= ra.F32_TOL,
+                      f"{name}: max_abs_err {err} > {ra.F32_TOL}")
+                worst = max(worst, share)
+    print(f"  K3: worst share of the bound {worst:.3f}", flush=True)
+    return worst
+
+
+def tile_cases(device="cuda"):
+    """The tile path (``rpa_tile_kernel``) against the plain version, each
+    output element within ``ra.tolerance``: bf16 models at head dim 128
+    (and 64), page sizes 4 (K3's cp.async gather), 16, 32 and 64 (its
+    TMA gather), groups 1 and 4, ragged prefill
+    with a q_len=0 slot, suffix rows of 2 to 64 rows (the smallest the
+    dispatch sends) and of 65 to 520, over bf16 pages (K3) and int8 and
+    fp8 pages (K4); every dead row NaN, dead payloads fp8 NaN / int8
+    −128, dead scales NaN. Each case must launch the tile kernel.
+    Returns the worst share of the bound."""
+    import torch
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    rng = np.random.default_rng(SEED + 13)
+    worst = 0.0
+    shapes = [(128, 1, 32, 32), (128, 4, 32, 8), (64, 4, 8, 2)]
+    for ps in (4, 16, 32, 64):
+        max_pages = 1024 // ps
+        for hd, groups, H, KV in shapes:
+            kinds = {"prefill": ([512, 300, 0, 37], [512, 300, 77, 37]),
+                     "suffix short": ([2, 17, 2, 64 // groups],
+                                      [700, 18, 90, 900]),
+                     "suffix long": ([130, 65, 7, 100],
+                                     [1000, 65, 300, 613])}
+            if hd == 64 and ps != 32:
+                kinds.pop("suffix long")
+            for kind, (ql, kl) in kinds.items():
+                args = make_case(rng, ql, kl, H, KV, hd, ps, max_pages,
+                                 torch.bfloat16, device)
+                check(ra._tile_path(max(ql), hd, torch.bfloat16),
+                      f"{kind}: not on the tile path")
+                for pages in ("bf16", "int8", "fp8"):
+                    if pages == "bf16":
+                        case, scales = args, ()
+                    else:
+                        qa = quantize_case(args, pages)
+                        case, scales = qa[:6], qa[6:]
+                    key = "ragged_paged_attention" + \
+                        ("_quant" if scales else "") + "_tile"
+                    before = ra.LAUNCHES[key]
+                    name = (f"{kind} {pages} pages hd={hd} groups={groups} "
+                            f"ps={ps}")
+                    _, share = rpa_check(name, case, ps, scales, "tile")
+                    check(ra.LAUNCHES[key] == before + 1,
+                          f"{name}: {key} did not launch")
+                    worst = max(worst, share)
+    print(f"  tile path: worst share of the bound {worst:.3f}", flush=True)
+    return worst
 
 
 def quantize_case(args, mode):
@@ -217,46 +386,6 @@ def quantize_case(args, mode):
         pools.append((pay, sc))
     (kq, ks), (vq, vs) = pools
     return q, kq, vq, bt, ql, kl, ks, vs
-
-
-def k4_compare(qargs, ps):
-    """K4 and its plain version on one quantized case: (kernel output,
-    plain output, max_abs_err, worst share of the bound ``ra.tolerance``:
-    per row in f32, per element in bf16)."""
-    import torch
-    from paddle_tpu_torch.ops import ragged_attention as ra
-    q, kq, vq, bt, ql, kl, ks, vs = qargs
-    out = ra.ragged_paged_attention(q, kq, vq, bt, ql, kl, page_size=ps,
-                                    k_scale=ks, v_scale=vs)
-    ref = ra.ragged_paged_attention_reference(q, kq, vq, bt, ql, kl,
-                                              page_size=ps, k_scale=ks,
-                                              v_scale=vs)
-    diff = (out.float() - ref.float()).abs()
-    bound = ra.tolerance(q, kq, vq, bt, ql, kl, page_size=ps, k_scale=ks,
-                         v_scale=vs)
-    share = float(torch.where(diff > 0, diff / bound,
-                              torch.zeros_like(diff)).max())
-    return out, ref, float(diff.max()), share
-
-
-def k4_check(name, qargs, ps):
-    """K4 against its plain version on one quantized case: finite outputs,
-    q_len = 0 slots all zeros, and every output element within its bound.
-    Returns (max_abs_err, worst share of the bound)."""
-    import torch
-    out, ref, err, share = k4_compare(qargs, ps)
-    check(bool(torch.isfinite(out).all()), f"{name}: kernel output not "
-          "finite")
-    check(bool(torch.isfinite(ref).all()), f"{name}: plain output not finite")
-    ql = qargs[4]
-    for b in torch.nonzero(ql == 0).flatten().tolist():
-        check(bool((out[b] == 0).all()), f"{name}: q_len=0 slot {b} not "
-              "zeros")
-    print(f"  K4-vs-plain {name:<40} max_abs_err={err:.3e} "
-          f"share of the bound {share:.3f}", flush=True)
-    check(share <= 1.0, f"{name}: |kernel − plain| reaches {share:.3f} of "
-          f"its bound (max_abs_err {err})")
-    return err, share
 
 
 def quant_kernel_cases(device="cuda"):
@@ -284,7 +413,8 @@ def quant_kernel_cases(device="cuda"):
                                      dtype, device)
                     name = (f"{kind} {mode} {str(dtype)[6:]} hd={hd} "
                             f"groups={groups}")
-                    _, share = k4_check(name, quantize_case(args, mode), ps)
+                    qa = quantize_case(args, mode)
+                    _, share = rpa_check(name, qa[:6], ps, qa[6:], "K4")
                     worst = max(worst, share)
     print(f"  K4: worst share of the bound {worst:.3f}", flush=True)
     return worst
@@ -298,8 +428,9 @@ SERVE_GEOMETRY = dict(max_batch=4, max_len=1024, prompt_buckets=(512,),
 def serve(cfg, params, device="cuda", kv_dtype=None, pool_hbm_bytes=None):
     """Serve 8 requests (with ``kv_dtype`` pages, in a pool of
     ``pool_hbm_bytes`` when given); returns (engine, requests, results,
-    seconds, mid-flight admission bursts, launches of the path's kernel —
-    K3, or K4 with kv_dtype —, per-step host seconds by kind)."""
+    seconds, mid-flight admission bursts, launches of the path's kernels —
+    K3, or K4 with kv_dtype, on rpa_kernel and rpa_tile_kernel together —,
+    per-step host seconds by kind)."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
     from paddle_tpu_torch.ops import ragged_attention as ra
@@ -328,8 +459,8 @@ def serve(cfg, params, device="cuda", kv_dtype=None, pool_hbm_bytes=None):
         midflight += bool(busy and had_prefill)
         finished.update(engine.take_finished())
     seconds = time.perf_counter() - t0
-    launches = ra.LAUNCHES["ragged_paged_attention_quant" if kv_dtype
-                           else "ragged_paged_attention"]
+    mine = "ragged_paged_attention" + ("_quant" if kv_dtype else "")
+    launches = ra.LAUNCHES[mine] + ra.LAUNCHES[mine + "_tile"]
     return engine, reqs, [finished.get(r) for r in rids], seconds, \
         midflight, launches, step_s
 
@@ -721,6 +852,11 @@ def timed_shape(kind, B, q_len, kv_len, H, KV, hd, ps, max_pages,
     ms = time_ms(lambda: ra.ragged_paged_attention(*args, **kw))
     host_ms = time_ms(lambda: ra.ragged_paged_attention(*args, **kw),
                       device_only=False)
+    # the tile path's shapes: rpa_kernel at the same shape, for comparison
+    tile = ra._tile_path(q_len, hd, q.dtype)
+    old_ms = time_ms(lambda: ra._launch(
+        *args, ps, kw.get("k_scale"), kw.get("v_scale"), tile=False)) \
+        if tile else None
     plain_ms = time_ms(
         lambda: ra.ragged_paged_attention_reference(*args, **kw))
     # yardstick: the same rows gathered contiguous (gather not timed)
@@ -752,15 +888,58 @@ def timed_shape(kind, B, q_len, kv_len, H, KV, hd, ps, max_pages,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None if kv_dtype else sdpa_ms, "max_abs_err": err,
-           "ms_with_host": host_ms, "bytes": nbytes, "flops": flops}
+           "ms_with_host": host_ms, "bytes": nbytes, "flops": flops,
+           "kernel": "rpa_tile_kernel" if tile else "rpa_kernel"}
+    if tile:
+        rec["rpa_kernel_ms"] = old_ms
     if kv_dtype:
         rec["sdpa_on_dequantized_ms"] = sdpa_ms
     label = "sdpa on dequantized K/V (yardstick)" if kv_dtype else "sdpa"
-    print(f"  {rec['shape']}: kernel {ms:.4f} ms (with host {host_ms:.4f}"
-          f" ms), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
-          f"{plain_ms:.4f} ms, {label} {sdpa_ms:.4f} ms, max_abs_err "
-          f"{err:.3e}", flush=True)
+    other = f", rpa_kernel {old_ms:.4f} ms" if tile else ""
+    print(f"  {rec['shape']}: {rec['kernel']} {ms:.4f} ms (with host "
+          f"{host_ms:.4f} ms), bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}), plain {plain_ms:.4f} ms, {label} "
+          f"{sdpa_ms:.4f} ms{other}, max_abs_err {err:.3e}", flush=True)
     return rec
+
+
+CROSSOVER_Q = (2, 4, 8, 16, 32, 64, 128)
+CROSSOVER_KV = (128, 1024)
+
+
+def tile_crossover(H, KV, hd, B=4, ps=16):
+    """Both kernels of K3 over bf16 pages at suffix rows of q_len in
+    CROSSOVER_Q and kv_len in CROSSOVER_KV (B slots, the serving
+    geometry), device time by CUDA events: {kv_len: {q_len·groups:
+    [rpa_kernel ms, tile ms]}}, and the smallest q_len·groups from which
+    the tile kernel is at least as fast at every measured size and kv_len
+    (the dispatch, ``_tile_path``, sends it every call of q_max > 1: 2
+    rows and up)."""
+    import torch
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    rng = np.random.default_rng(SEED + 14)
+    table = {}
+    for kv_len in CROSSOVER_KV:
+        row = table[kv_len] = {}
+        for ql in CROSSOVER_Q:
+            args = make_case(rng, [ql] * B, [kv_len] * B, H, KV, hd, ps,
+                             -(-kv_len // ps), torch.bfloat16)
+            row[ql * H // KV] = [
+                time_ms(lambda: ra._launch(*args, ps, tile=t), iters=20)
+                for t in (False, True)]
+        print(f"  crossover at kv_len {kv_len} (B={B}, bf16 pages; rows: "
+              f"rpa_kernel ms / rpa_tile_kernel ms): " + ", ".join(
+                  f"{n}: {a:.4f}/{b:.4f}" for n, (a, b) in row.items()),
+              flush=True)
+    rows = sorted(next(iter(table.values())))
+    faster = [n for n in rows if all(t[m][1] <= t[m][0] for t in
+                                     table.values() for m in rows if m >= n)]
+    cross = min(faster) if faster else None
+    print(f"  tile kernel as fast from {cross} rows at every kv_len "
+          f"(dispatch: every call of q_max > 1)", flush=True)
+    return {"ms": {str(kv): {str(n): v for n, v in row.items()}
+                   for kv, row in table.items()},
+            "from_rows": cross, "dispatch_rows": 2}
 
 
 # --------------------------------------------------------------- phase 6
@@ -1129,26 +1308,31 @@ def checked_serve(cfg, params, device="cuda", kv_dtype=None,
                   pool_hbm_bytes=None):
     """``serve`` and the checks every serving run must pass: each request
     completes with its full budget, admissions land mid-flight, the pool
-    drains, and the path's kernel (K3, or K4 with ``kv_dtype``) launches
-    32 × (decode steps + prefill-carrying bursts) times while the other
-    does not launch at all. Returns (engine, requests, results, seconds,
-    launches, tokens)."""
+    drains, and the path's kernels launch once per layer per step: K3 (or
+    K4 with ``kv_dtype``) on ``rpa_kernel`` for every decode step, on
+    ``rpa_tile_kernel`` for every prefill-carrying burst's 512-row prefill,
+    while the other pool type's kernels do not launch at all. Returns
+    (engine, requests, results, seconds, {"rpa": decode launches, "tile":
+    prefill launches}, tokens)."""
     from paddle_tpu_torch.ops import ragged_attention as ra
-    engine, reqs, results, seconds, midflight, launches, step_s = serve(
+    engine, reqs, results, seconds, midflight, total, step_s = serve(
         cfg, params, device, kv_dtype=kv_dtype,
         pool_hbm_bytes=pool_hbm_bytes)
     kernel, other = ("K4", "K3") if kv_dtype else ("K3", "K4")
-    others = ra.LAUNCHES["ragged_paged_attention" if kv_dtype
-                         else "ragged_paged_attention_quant"]
+    mine = "ragged_paged_attention" + ("_quant" if kv_dtype else "")
+    launches = {"rpa": ra.LAUNCHES[mine], "tile": ra.LAUNCHES[mine + "_tile"]}
+    others = sum(n for k, n in ra.LAUNCHES.items()
+                 if k not in (mine, mine + "_tile"))
     st = engine.stats
-    expect = cfg.num_hidden_layers * (st["decode_steps"]
-                                      + st["prefill_bursts"])
+    expect = {"rpa": cfg.num_hidden_layers * st["decode_steps"],
+              "tile": cfg.num_hidden_layers * st["prefill_bursts"]}
     n_tok = sum(len(r.out) for r in results if r is not None)
     tag = f"[serve {kv_dtype}]" if kv_dtype else "[serve]"
     print(f"{tag} {len(reqs)} requests, {n_tok} tokens in {seconds:.3f} s "
           f"= {n_tok / seconds:.2f} tokens/s; stats {st}; mid-flight "
           f"admission bursts {midflight}; {engine._alloc.usable} usable "
-          f"pages; {kernel} launches {launches} (expected {expect}), "
+          f"pages; {kernel} launches: rpa_kernel {launches['rpa']}, "
+          f"rpa_tile_kernel {launches['tile']} (expected {expect}), "
           f"{other} launches {others}", flush=True)
     for kind, runs in step_s.items():
         if runs:
@@ -1156,9 +1340,12 @@ def checked_serve(cfg, params, device="cuda", kv_dtype=None,
                   f"{statistics.median(runs) * 1e3:.2f} ms per burst of "
                   f"{engine.burst} decode steps", flush=True)
     what = kv_dtype or "bf16 pages"
-    check(launches == expect, f"{what}: {kernel} launches {launches} != "
-          f"{expect}")
-    check(launches > 0, f"{what}: serving launched no kernel")
+    check(total == sum(expect.values()), f"{what}: {kernel} launches "
+          f"{total} != {sum(expect.values())}")
+    check(launches == expect, f"{what}: {kernel} launches by kernel "
+          f"{launches} != {expect}")
+    check(launches["rpa"] > 0 and launches["tile"] > 0,
+          f"{what}: serving launched no decode or no prefill kernel")
     check(others == 0, f"{what}: {other} launched {others} times")
     check(midflight >= 2, f"{what}: only {midflight} bursts admitted "
           "mid-flight")
@@ -1207,7 +1394,7 @@ def serving_phases(cfg):
           f"{sum(v.numel() for v in params.values()) / 1e9:.3f} B params",
           flush=True)
     engine, reqs, results, seconds, launches, n_tok = \
-        checked_serve(cfg, params)
+        checked_serve(cfg, params)     # launches: {"rpa": n, "tile": n}
     # the byte budget of this engine's pool, for the quantized runs
     budget = engine._alloc.num_pages * page_bytes(cfg, engine._ps)
     del engine
@@ -1249,45 +1436,60 @@ def serving_phases(cfg):
     qtimes = {kv: (timed_shape("decode", 4, 1, 1024, H, KV, hd, 16, 64, kv),
                    timed_shape("prefill", 4, 512, 512, H, KV, hd, 16, 64, kv))
               for kv in ("int8", "fp8")}
-    launches_per_token = launches / n_tok
-    k4_launches = sum(q["launches"] for q in quant.values())
+    cross = tile_crossover(H, KV, hd)
+    k3_n = launches["rpa"] + launches["tile"]
+    k4_n = {kv: q["launches"]["rpa"] + q["launches"]["tile"]
+            for kv, q in quant.items()}
     k4_tokens = sum(q["tokens"] for q in quant.values())
-    print(f"[times] launches per served token: K3 {launches_per_token:.3f}, "
-          f"K4 {k4_launches / k4_tokens:.3f}", flush=True)
+    print(f"[times] launches per served token: K3 {k3_n / n_tok:.3f}, "
+          f"K4 {sum(k4_n.values()) / k4_tokens:.3f}", flush=True)
     phase("times", t0)
-    k3 = {"name": "ragged_paged_attention", "route": "cuda",
-          "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "ms_with_host", "shape")
+    src = "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu"
+    k3 = {"name": "ragged_paged_attention", "route": "cuda", "source": src,
           "replaces": "paddle_tpu/ops/ragged_attention.py:97",
-          "launches": launches, "max_abs_err": decode["max_abs_err"],
-          "ms": decode["ms"], "plain_ms": decode["plain_ms"],
-          "bound_ms": decode["bound_ms"],
-          "bound_by": decode["bound_by"],
-          "library_ms": decode["library_ms"],
-          "ms_with_host": decode["ms_with_host"],
-          "shape": decode["shape"], "prefill": prefill,
-          "launches_per_token": launches_per_token,
+          "path": "rpa_kernel: decode rows (and f32, head dim 16)",
+          "launches": launches["rpa"], **{k: decode[k] for k in keys},
+          "launches_per_token": k3_n / n_tok,
           "tokens_per_s": n_tok / seconds}
-    dec8 = qtimes["int8"][0]
+    k3_tile = {"name": "ragged_paged_attention_tile", "route": "cuda",
+               "source": src,
+               "replaces": "paddle_tpu/ops/ragged_attention.py:97",
+               "path": "rpa_tile_kernel: bf16 prefill and suffix rows",
+               "launches": launches["tile"], **{k: prefill[k] for k in keys},
+               "rpa_kernel_ms": prefill["rpa_kernel_ms"],
+               "crossover": cross}
+    dec8, pre8 = qtimes["int8"]
     k4 = {"name": "ragged_paged_attention_quant", "route": "cuda",
-          "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
-          "replaces": "paddle_tpu/ops/ragged_attention.py:194",
-          "launches": k4_launches,
-          "launches_by_kv_dtype": {kv: q["launches"]
+          "source": src, "replaces": "paddle_tpu/ops/ragged_attention.py:194",
+          "path": "rpa_kernel: decode rows (and f32, head dim 16)",
+          "launches": sum(q["launches"]["rpa"] for q in quant.values()),
+          "launches_by_kv_dtype": {kv: q["launches"]["rpa"]
                                    for kv, q in quant.items()},
-          **{k: dec8[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms",
-                                  "sdpa_on_dequantized_ms", "ms_with_host",
-                                  "shape")},
-          "prefill": qtimes["int8"][1],
-          "fp8": {"decode": qtimes["fp8"][0], "prefill": qtimes["fp8"][1]},
-          "launches_per_token": k4_launches / k4_tokens,
+          **{k: dec8[k] for k in keys},
+          "sdpa_on_dequantized_ms": dec8["sdpa_on_dequantized_ms"],
+          "fp8": qtimes["fp8"][0],
+          "launches_per_token": sum(k4_n.values()) / k4_tokens,
           "tokens_per_s": {kv: q["tokens_per_s"] for kv, q in quant.items()},
           "f32_pool_check": {kv: q["f32_pool_check"]
                              for kv, q in quant.items()},
           "usable_pages": {"bf16": bf16_usable,
                            **{kv: q["usable_pages"]
                               for kv, q in quant.items()}}}
-    return [k3, k4]
+    k4_tile = {"name": "ragged_paged_attention_quant_tile", "route": "cuda",
+               "source": src,
+               "replaces": "paddle_tpu/ops/ragged_attention.py:194",
+               "path": "rpa_tile_kernel: bf16 prefill and suffix rows",
+               "launches": sum(q["launches"]["tile"]
+                               for q in quant.values()),
+               "launches_by_kv_dtype": {kv: q["launches"]["tile"]
+                                        for kv, q in quant.items()},
+               **{k: pre8[k] for k in keys},
+               "sdpa_on_dequantized_ms": pre8["sdpa_on_dequantized_ms"],
+               "rpa_kernel_ms": pre8["rpa_kernel_ms"],
+               "fp8": qtimes["fp8"][1]}
+    return [k3, k3_tile, k4, k4_tile]
 
 
 # --------------------------------------------------------------- phase 8
@@ -1624,7 +1826,8 @@ def sparse_phase(device="cuda"):
     torch.cuda.empty_cache()
     return [{"name": name, "route": "cuda",
              "source": "paddle_tpu_torch/ops/csrc/block_sparse_attention.cu",
-             "replaces": BSA_REPLACES[name], "launches": launches[name],
+             "replaces": BSA_REPLACES[name], "path": PATHS[name],
+             "launches": launches[name],
              "launches_per_call": launches[name] // 2, **rec}
             for name, rec in recs.items()]
 
@@ -1633,6 +1836,15 @@ FLASH_REPLACES = {
     "flash_fwd": "paddle_tpu/ops/flash_attention.py:316",
     "flash_bwd_dq": "paddle_tpu/ops/flash_attention.py:201",
     "flash_bwd_dkv": "paddle_tpu/ops/flash_attention.py:243",
+}
+# the kernel each record's bf16 times and launches come from
+PATHS = {
+    "flash_fwd": "flash_fwd_kernel: Hopper tile core (wgmma, TMA ring)",
+    "flash_bwd_dq": "flash_bwd_dq_kernel: mma.sync tiles",
+    "flash_bwd_dkv": "flash_bwd_dkv_kernel: mma.sync tiles",
+    "bsa_fwd": "bsa_fwd_kernel: mma.sync tiles over the 64-tile plan",
+    "bsa_bwd_dq": "bsa_bwd_dq_kernel: mma.sync tiles over the plan",
+    "bsa_bwd_dkv": "bsa_bwd_dkv_kernel: mma.sync tiles over the plan",
 }
 
 
@@ -1680,15 +1892,18 @@ def main() -> int:
         print(f"[build] {name}: {r['seconds']:.2f} s, "
               f"{len(regs)} ptxas lines, {len(spills)} with spills",
               flush=True)
-        for ln in regs:
-            print(f"  ptxas: {ln}")
+        for kernel, line in ptxas_by_kernel(r["log"]):
+            print(f"  ptxas: {kernel}: {line}")
     phase("build", t0)
 
     cfg = LlamaConfig.llama2_7b()
-    # 3. K3 and K4 against their plain versions
+    # 3. the tile core's wgmma check, then K3 and K4 (both kernels of
+    # each) against their plain versions
     t0 = time.perf_counter()
+    wgmma_unit_check()
     kernel_cases()
     quant_kernel_cases()
+    tile_cases()
     phase("kernels", t0)
     # 4-5. serving and K3's and K4's times
     records = serving_phases(cfg)
@@ -1705,7 +1920,8 @@ def main() -> int:
                         "source": "paddle_tpu_torch/ops/csrc/"
                                   "flash_attention.cu",
                         "replaces": FLASH_REPLACES[name],
-                        "launches": launches[name], **rec})
+                        "path": PATHS[name], "launches": launches[name],
+                        **rec})
     # 8. block-sparse attention: K5 and K6, sparse.fused_attention
     t0 = time.perf_counter()
     records += sparse_phase()

@@ -40,6 +40,14 @@ SIGNATURES = {
         # stream
         "rpa_quant_launch": ([_P] * 9 + [_I] * 9 + [_L] * 12
                              + [ctypes.c_float, _P], _I),
+        # the tile path (prefill and suffix rows): rpa_launch's arguments
+        # and the pool's page count; rpa_quant_launch's
+        "rpa_tile_launch": ([_P] * 7 + [_I] * 9 + [_L] * 10
+                            + [ctypes.c_float, _P], _I),
+        "rpa_tile_quant_launch": ([_P] * 9 + [_I] * 9 + [_L] * 12
+                                  + [ctypes.c_float, _P], _I),
+        # q, k, v, s_out, o_out, stream
+        "hopper_wgmma_check": ([_P] * 6, _I),
         "rpa_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {

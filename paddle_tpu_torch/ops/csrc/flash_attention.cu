@@ -21,11 +21,19 @@
 // the causal forward does 4·H·D·L(L+1)/2 ≈ 34.4 GFLOP on 67 MB of q, k,
 // v and out (≈ 0.035 ms at 989 TFLOP/s against ≈ 0.020 ms at 3.35 TB/s),
 // and the backward ≈ 2.5× the forward's products on ≈ 1.7× its bytes.
-// So the design puts the products on the tensor cores the simple way:
-//   * mma.sync m16n8k16 bf16 tiles with an f32 accumulator (no wgmma,
-//     TMA or warp specialisation yet); the score tile stays in registers
-//     and is fed to the second product as its A operand without a trip
-//     through shared memory (FlashAttention-2's register reuse);
+// So the design puts the products on the tensor cores:
+//   * the bf16 forward (flash_fwd_kernel) runs on the Hopper tile core of
+//     hopper_attention.cuh: two warpgroups per (batch, head, 128-row query
+//     tile), S = Q·Kᵀ and O += P·V on wgmma (V read MN-major, never
+//     transposed), Q once and K/V tiles through a two-stage ring that TMA
+//     fills from the [B, L, H, D] strides (4D maps, no transposing copy)
+//     while the previous tile's products run, an online softmax in base
+//     2, and the heaviest causal tiles launched first;
+//   * the backward (and the f32 forward) uses mma.sync m16n8k16 bf16
+//     tiles with an f32 accumulator (attention_tiles.cuh); the score tile
+//     stays in registers and is fed to the second product as its A
+//     operand without a trip through shared memory (FlashAttention-2's
+//     register reuse);
 //   * one block of 4 warps per (batch, head, tile of 64 rows), each warp
 //     owning 16 rows, with an online softmax (forward) or a running dq,
 //     dk/dv sum (backward) in registers; the TPU's sequential
@@ -37,7 +45,7 @@
 //     past L and columns past S are zero-filled in shared memory and
 //     masked, so any L and S work (no multiple-of-128 gate, no padding);
 //   * q, k, v, dout are read in their [B, L, H, D] layout through element
-//     strides with 16-byte loads: no transposing copy.
+//     strides: no transposing copy.
 // The f32 instances do the same tiling with their products in f32 on the
 // CUDA cores (never TF32): they exist for the f32 reference runs.
 //
@@ -51,7 +59,9 @@
 // each *_launch takes device pointers, sizes, the f32 scale, a host array
 // of element strides (batch, seq, head) for q, k, v, out, dout, dq, dk,
 // dv — 24 values, unused ones 0 — and the CUDA stream; it launches on
-// that stream, allocates nothing, and returns cudaGetLastError().
+// that stream, allocates nothing, and returns cudaGetLastError(). The
+// bf16 forward's TMA maps come from cuTensorMapEncodeTiled, reached
+// through the runtime's driver entry point: no -lcuda.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +70,7 @@
 #include <cstdint>
 
 #include "attention_tiles.cuh"
+#include "hopper_attention.cuh"
 
 namespace {
 
@@ -78,10 +89,12 @@ __device__ __forceinline__ int visible_end(int row, const Params& p) {
   return p.causal ? min(p.S, row + p.S - p.L + 1) : p.S;
 }
 
-// ---------------------------------------------------------------- forward
+// ------------------------------------------------------- forward, f32
+// The f32 instances (products in f32 on CUDA cores, for the reference
+// runs); bf16 runs flash_fwd_kernel below.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, const Params p) {
   constexpr int SR = row_stride<T, D>();
@@ -180,6 +193,105 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       store2(orow + nd * 8 + 2 * t, acc[nd][2 * r] / denom,
              acc[nd][2 * r + 1] / denom);
     if (t == 0) lb[rows[r]] = m[r] + logf(denom);
+  }
+}
+
+// ------------------------------------------------------ forward, bf16
+// Two consumer warpgroups per (batch·head, 128-row query tile), each
+// owning 64 rows and sharing one K/V ring (measured faster than one
+// warpgroup per 64 rows: 0.089 against 0.099 ms causal at L=S=2048,
+// PERF.md), heaviest causal tiles first; Q once and K/V tiles through a
+// two-stage ring, all by TMA from the [B, L, H, D] layout (no transposing
+// copy), each stage's K and V on their own mbarrier so that S = Q·Kᵀ
+// starts before V lands; the copy of tile j+1 is in flight while tile
+// j's products run. Products and softmax: hopper_attention.cuh.
+constexpr int kFwdWG = 2;   // consumer warpgroups of the bf16 forward
+
+template <int D>
+__global__ void __launch_bounds__(kFwdWG * hopper::kWG)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 bf16* __restrict__ out, float* __restrict__ lse,
+                 const Params p) {
+  using namespace hopper;
+  constexpr int TB = tile_bytes<D>();
+  constexpr int BQ = kFwdWG * kTile;  // query rows of the block
+  extern __shared__ __align__(16) uint8_t fwd_smem[];
+  uint8_t* sQ = align_1024(fwd_smem);   // one 64-row tile per warpgroup
+  uint8_t* sK = sQ + kFwdWG * TB;  // two stages
+  uint8_t* sV = sK + 2 * TB;       // two stages
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * TB);  // q, k[2], v[2]
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
+  const int kv_end = visible_end(min(q0 + BQ, p.L) - 1, p);
+  const int n_kv = kv_end > 0 ? (kv_end + kTile - 1) / kTile : 0;
+  // every row of the tile sees every column below full_end (rows further
+  // down see more), so only tiles reaching past it test columns
+  const int full_end = visible_end(q0, p);
+  const int rows[2] = {q0 + acc_row(0), q0 + acc_row(1)};
+  const int ends[2] = {visible_end(rows[0], p), visible_end(rows[1], p)};
+  const float scale_log2 = p.scale * kLog2e;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(bar + i, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  auto load = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bb,
+                  int row, int tiles) {
+    mbar_expect_tx(bb, tiles * TB);
+    for (int t = 0; t < tiles; ++t)
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(dst + t * TB + c * kChunkBytes, map, bb, c * 64, h,
+                    row + t * kTile, b);
+  };
+  if (threadIdx.x == 0 && n_kv > 0) {
+    load(sQ, &tq, bar, q0, kFwdWG);
+    load(sK, &tk, bar + 1, 0, 1);
+    load(sV, &tv, bar + 3, 0, 1);
+  }
+  const uint8_t* myQ = sQ + (threadIdx.x / kWG) * TB;
+
+  FwdTile<D> st;
+  st.init();
+  if (n_kv > 0) mbar_wait(bar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j & 1;
+    if (j + 1 < n_kv) {
+      __syncthreads();   // every warp is done with tile j-1's stage
+      if (threadIdx.x == 0) {
+        load(sK + (s ^ 1) * TB, &tk, bar + 1 + (s ^ 1), (j + 1) * kTile, 1);
+        load(sV + (s ^ 1) * TB, &tv, bar + 3 + (s ^ 1), (j + 1) * kTile, 1);
+      }
+    }
+    const uint32_t parity = (j >> 1) & 1;
+    const int c0 = j * kTile;
+    float sc[32];
+    mbar_wait(bar + 1 + s, parity);
+    qk_tile<D>(sc, myQ, sK + s * TB);
+    st.softmax(sc, scale_log2, c0 + kTile > full_end,
+               [&](int i, int c) { return c0 + c < ends[i]; });
+    mbar_wait(bar + 3 + s, parity);
+    pv_tile<D>(st.o, sc, sV + s * TB);
+  }
+
+  st.finish();
+  bf16* ob = out + b * p.o[0] + h * p.o[2];
+  float* lb = lse + ((long long)b * p.H + h) * p.L;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= p.L) continue;
+    const float inv = 1.f / st.denom(i);
+    bf16* orow = ob + rows[i] * p.o[1];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(orow + acc_col(j, 0), st.o[4 * j + 2 * i] * inv,
+             st.o[4 * j + 2 * i + 1] * inv);
+    if (t == 0) lb[rows[i]] = st.lse(i);
   }
 }
 
@@ -391,13 +503,43 @@ template <typename T, int D>
 int fwd(const Params& p, const void* q, const void* k, const void* v,
         void* out, void* lse, cudaStream_t s) {
   constexpr size_t bytes = smem_fwd<T, D>();
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, bytes);
+  cudaError_t e = allow_smem(flash_fwd_f32_kernel<T, D>, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((p.L + kBQ - 1) / kBQ, p.H, p.B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, s>>>(
+  flash_fwd_f32_kernel<T, D><<<grid, kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16: TMA maps over q, k, v as the strides give them, then
+// flash_fwd_kernel on (B·H, 128-row query tiles) blocks of two
+// warpgroups.
+template <int D>
+int fwd_bf16(const Params& p, const void* q, const void* k, const void* v,
+             void* out, void* lse, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  int err = hopper::encode_bnhd(&tq, q, p.B, p.L, p.H, D, p.q[0], p.q[1],
+                                p.q[2]);
+  if (!err)
+    err = hopper::encode_bnhd(&tk, k, p.B, p.S, p.H, D, p.k[0], p.k[1],
+                              p.k[2]);
+  if (!err)
+    err = hopper::encode_bnhd(&tv, v, p.B, p.S, p.H, D, p.v[0], p.v[1],
+                              p.v[2]);
+  if (err) return err;
+  // alignment slack, Q, two K and two V stages, five mbarriers
+  constexpr size_t bytes =
+      1024 + (kFwdWG + 4) * hopper::tile_bytes<D>() + 5 * 8;
+  cudaError_t e = allow_smem(flash_fwd_kernel<D>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  constexpr int BQ = kFwdWG * hopper::kTile;
+  const int n_q = (p.L + BQ - 1) / BQ;
+  if (n_q > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(p.B * p.H, n_q, 1);
+  flash_fwd_kernel<D><<<grid, kFwdWG * hopper::kWG, bytes, s>>>(
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -462,8 +604,8 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return D == 64 ? fwd<bf16, 64>(p, q, k, v, out, lse, s)
-                   : fwd<bf16, 128>(p, q, k, v, out, lse, s);
+    return D == 64 ? fwd_bf16<64>(p, q, k, v, out, lse, s)
+                   : fwd_bf16<128>(p, q, k, v, out, lse, s);
   if (dtype == 0)
     return D == 64 ? fwd<float, 64>(p, q, k, v, out, lse, s)
                    : fwd<float, 128>(p, q, k, v, out, lse, s);

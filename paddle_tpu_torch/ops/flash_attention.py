@@ -9,9 +9,11 @@ tensors' device and nothing else:
   ``flash_attention_reference`` (what kernel K1 computes) and
   ``flash_attention_bwd_reference`` (what K2 computes);
 * CUDA tensors launch the hand-written Hopper kernels of
-  ``csrc/flash_attention.cu`` (``flash_fwd``; ``flash_bwd_dq`` and
-  ``flash_bwd_dkv``), built with nvcc at first use by ``_build.py``, or
-  raise. Nothing sends a CUDA tensor elsewhere: the JAX package's
+  ``csrc/flash_attention.cu`` (``flash_fwd``: in bf16 on the Hopper tile
+  core of ``csrc/hopper_attention.cuh``, wgmma products over K/V tiles
+  that TMA streams into a two-stage ring, in f32 on CUDA cores;
+  ``flash_bwd_dq`` and ``flash_bwd_dkv``), built with nvcc at first use
+  by ``_build.py``, or raise. Nothing sends a CUDA tensor elsewhere: the JAX package's
   ``L % 128 or S % 128`` gate and its D padding have no counterpart — the
   kernels take any L and S and D in ``SUPPORTED_HEAD_DIMS`` natively.
 
@@ -172,6 +174,19 @@ def _check(name, t, dtype, device):
                          f"a 16-byte aligned start (strides {t.stride()})")
 
 
+def _check_tma(name, t):
+    """The bf16 forward (K1) reads q, k and v through TMA tensor maps: on
+    top of ``_check``'s 16-byte multiples and alignment, the map needs
+    each dim of extent > 1 to step by a positive stride below 2^40
+    bytes."""
+    for size, stride in zip(t.shape[:3], t.stride()[:3]):
+        if size > 1 and not 0 < stride * t.element_size() < 2 ** 40:
+            raise ValueError(f"flash attention: {name} strides "
+                             f"{t.stride()} cannot be a TMA map's (each "
+                             "dim of extent > 1 needs a stride in (0, "
+                             "2^40) bytes)")
+
+
 def _validate(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
@@ -227,6 +242,9 @@ def _run(name, causal, scale, **tensors):
 def _flash_fwd(q, k, v, causal, scale):
     """Launch flash_fwd: (out like q, lse [B, H, L] f32)."""
     _validate(q, k, v)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, t)
     B, L, H, _ = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)

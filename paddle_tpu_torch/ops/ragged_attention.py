@@ -11,10 +11,19 @@ Dispatch follows the tensors' device and nothing else:
 
 * CPU tensors take ``ragged_paged_attention_reference``, the plain PyTorch
   version below;
-* CUDA tensors launch the hand-written Hopper kernel
-  ``csrc/ragged_paged_attention.cu`` (``rpa_launch`` for K3,
-  ``rpa_quant_launch`` for K4; built with nvcc at first use by
-  ``_build.py``), or raise. Nothing sends a CUDA tensor elsewhere.
+* CUDA tensors launch one of the two hand-written Hopper kernels of
+  ``csrc/ragged_paged_attention.cu`` (built with nvcc at first use by
+  ``_build.py``), or raise. Nothing sends a CUDA tensor elsewhere. Which
+  one is a function of the shapes alone, ``_tile_path``: prefill and
+  suffix rows (``q_max > 1``) of a bf16 model at head dims 64 and 128
+  take the tile path, ``rpa_tile_kernel`` on the Hopper tile core
+  (``rpa_tile_launch``, ``rpa_tile_quant_launch``: wgmma products, an
+  asynchronous ring of key tiles gathered through the block table);
+  decode rows, head dim 16 and f32 models take ``rpa_kernel`` on CUDA
+  cores (``rpa_launch`` for K3, ``rpa_quant_launch`` for K4). On an H100
+  the tile kernel was at least as fast as ``rpa_kernel`` from 2 rows of
+  q_len·groups on, at kv_len 128 and 1024 (``chip_smoke.py`` phase 5,
+  ``PERF.md``), so every call with more than one query row takes it.
 
 Both compute the function of the TPU kernels, with one deliberate
 difference for non-finite pool contents: rows at or past ``kv_len`` never
@@ -30,17 +39,17 @@ rounded to the MODEL dtype (q's), then widened to f32 for the products.
 The kernel and the plain version form these values bit for bit alike; from
 there the quantized function is K3's over the dequantized rows.
 
-Numerics of the kernel against the plain version (K3 and K4 alike): the
-plain version, like the TPU kernel, normalises the softmax in f32 and
-rounds the probabilities to the dtype of the V rows (the pool dtype for
-K3, the model dtype for K4) before the V product; the kernel keeps an
-online softmax in f32 and never rounds the probabilities. In f32 they
-differ by summation order only. In bf16 (8 significant bits: rounding
-moves a value by at most u = 2^-8 of it) each rounded probability p_j
-moves by at most u·p_j, which moves output element d by at most
-u·M_d, M_d = Σ_j p_j·|v_jd| (the plain version's ``mass``); then each
-side rounds its f32 output to bf16, by at most u of it, and the
-kernel's f32 output is within u·M_d of the plain one's. In all
+Numerics of the kernels against the plain version (K3 and K4 alike):
+the plain version, like the TPU kernel, normalises the softmax in f32
+and rounds the probabilities to the dtype of the V rows (the pool dtype
+for K3, the model dtype for K4) before the V product; ``rpa_kernel``
+keeps an online softmax in f32 and never rounds the probabilities. In
+f32 they differ by summation order only. In bf16 (8 significant bits:
+rounding moves a value by at most u = 2^-8 of it) each rounded
+probability p_j moves by at most u·p_j, which moves output element d by
+at most u·M_d, M_d = Σ_j p_j·|v_jd| (the plain version's ``mass``);
+then each side rounds its f32 output to bf16, by at most u of it, and
+the kernel's f32 output is within u·M_d of the plain one's. In all
 |kernel − plain| ≤ u·(1 + u)·M_d + 2u·|out_d|/(1 − u) plus f32 noise
 (summation order, ≈ 1e-5 of M_d). ``tolerance`` holds each bf16 element
 to ``BF16_UNIT·BF16_MARGIN·(M_d + 2·|out_d|)``, BF16_MARGIN = 1 + 2^-4
@@ -50,8 +59,21 @@ is ≈ 4 of it, so this is 5–20× tighter than a bound on the row's
 max|V|. f32 elements are held per row to ``F32_TOL`` of the largest |V|
 the row attends; every element also gets ``F32_TOL·ROW_FLOOR`` of the
 call's largest live |V|, so that values near 0 keep a bound above f32
-noise. K3's check, from its own slice, holds its whole output to
-``BF16_TOL_PER_MAX_V = 2^-7`` of the call's largest |V|.
+noise.
+
+The tile path adds one rounding. ``rpa_tile_kernel`` feeds the tensor
+cores the unnormalised probabilities p̃_j = 2^(x_j − m), m the running
+max when key j's tile is processed, rounded to bf16 as wgmma's A
+operand; the rescaling of earlier tiles by 2^(m_old − m_new) and the
+division by l = Σ_j p̃_j (f32, never rounded) stay in f32. The rounding
+moves each term p̃_j·v_jd by at most u·p̃_j·|v_jd|, so after the
+division by l the f32 output moves by at most u·Σ_j p_j·|v_jd| = u·M_d
+from the exact one, against the exact one's u·(1 + u)·M_d from the
+plain version: |kernel − plain| ≤ u·(2 + u)·M_d + 2u·|out_d|/(1 − u)
+plus f32 noise. ``tolerance`` adds that one ``BF16_UNIT·M_d`` term for
+the calls ``_tile_path`` sends to the tile kernel, holding their bf16
+elements to ``BF16_UNIT·BF16_MARGIN·(2·M_d + 2·|out_d|)``
+(u·(2 + u) ≤ 2u·BF16_MARGIN); nothing else changes.
 """
 from __future__ import annotations
 
@@ -64,19 +86,20 @@ from ..models.llama import f32_scale
 from ..quant.codec import dequantize_lastdim
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
-           "tolerance", "LAUNCHES", "F32_TOL", "BF16_TOL_PER_MAX_V",
-           "BF16_UNIT", "BF16_MARGIN", "ROW_FLOOR", "SUPPORTED_HEAD_DIMS"]
+           "tolerance", "LAUNCHES", "F32_TOL", "BF16_UNIT", "BF16_MARGIN",
+           "ROW_FLOOR", "SUPPORTED_HEAD_DIMS", "TILE_HEAD_DIMS"]
 
-# kernel launches by wrapper name; chip_smoke.py zeroes it before the main
-# path and reads it after
+# kernel launches by kernel: "ragged_paged_attention" (K3 on rpa_kernel),
+# "ragged_paged_attention_tile" (K3 on rpa_tile_kernel), and the same
+# with "_quant" for K4; chip_smoke.py zeroes it before the main path and
+# reads it after
 LAUNCHES: collections.Counter = collections.Counter()
 
 # |kernel − plain| bounds (see the module docstring): f32 differs by
 # summation order (inputs of order 1); bf16 by probability and output
-# rounding — relative to the call's max|V| (K3's check) or, element by
-# element, to Σ_j p_j·|v_j| and |out| (``tolerance``, K4's check)
+# rounding, element by element relative to Σ_j p_j·|v_j| and |out|
+# (``tolerance``)
 F32_TOL = 1e-4
-BF16_TOL_PER_MAX_V = 2.0 ** -7
 BF16_UNIT = 2.0 ** -8          # bf16 rounding moves a value by ≤ this of it
 BF16_MARGIN = 1.0 + 2.0 ** -4
 # share of the call's max|V| that scales every element's floor
@@ -84,8 +107,28 @@ BF16_MARGIN = 1.0 + 2.0 ** -4
 ROW_FLOOR = 2.0 ** -8
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
+# the tile path (``_tile_path``): bf16 models at these head dims
+TILE_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PAYLOAD_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
+def _tile_path(q_max: int, hd: int, dtype) -> bool:
+    """Whether a call of these shapes runs ``rpa_tile_kernel`` (the tile
+    path) rather than ``rpa_kernel``: bf16 models at head dims 64 and 128
+    with more than one query row a slot. Decode (q_max = 1), head dim 16
+    and f32 models stay on ``rpa_kernel``. The GQA group size does not
+    move the line: the measured crossover (module docstring) lies below
+    the fewest rows, 2, that a multi-row call has."""
+    return dtype == torch.bfloat16 and hd in TILE_HEAD_DIMS and q_max > 1
+
+
+def _check_tile_page_size(page_size: int) -> None:
+    """The tile path gathers 64-row key tiles: a page size must divide 64
+    or be a multiple of it."""
+    if 64 % page_size and page_size % 64:
+        raise ValueError(f"page_size {page_size} neither divides nor is a "
+                         "multiple of the tile path's 64-row key tile")
 
 
 def _check_scales(k_scale, v_scale):
@@ -191,9 +234,10 @@ def tolerance(q, k_pool, v_pool, block_table, q_lens, kv_lens, *,
               page_size: int, k_scale=None, v_scale=None):
     """Bound on |kernel − plain| for each element of the output of the
     same call, [B, Qmax, H, hd] f32. bf16: ``BF16_UNIT·BF16_MARGIN·(M +
-    2·|out|)``, M = Σ_j p_j·|v_j| of the element; f32: ``F32_TOL`` times
-    the largest |V| among the columns the element's row attends; both
-    plus ``F32_TOL·ROW_FLOOR`` of the call's largest live |V|. V is
+    2·|out|)``, M = Σ_j p_j·|v_j| of the element, with a second M for a
+    call that ``_tile_path`` sends to the tile kernel; f32: ``F32_TOL``
+    times the largest |V| among the columns the element's row attends;
+    both plus ``F32_TOL·ROW_FLOOR`` of the call's largest live |V|. V is
     dequantized for a quantized pool. See the module docstring for the
     derivation."""
     out, mass, row, top = _plain(q, k_pool, v_pool, block_table, q_lens,
@@ -202,6 +246,9 @@ def tolerance(q, k_pool, v_pool, block_table, q_lens, kv_lens, *,
     floor = F32_TOL * ROW_FLOOR * top
     if q.dtype == torch.float32:
         return (F32_TOL * row + floor).expand(out.shape)
+    B, q_max, H, hd = q.shape
+    if _tile_path(q_max, hd, q.dtype):
+        mass = 2 * mass
     return BF16_UNIT * BF16_MARGIN * (mass + 2 * out.float().abs()) + floor
 
 
@@ -242,10 +289,11 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, q_lens, kv_lens,
 
 
 def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size,
-            k_scale=None, v_scale=None):
+            k_scale=None, v_scale=None, tile=None):
     """Validate what the kernel takes, allocate the output, launch K3 (or
     K4 when the scales are given) on the current stream and raise on a
-    launch error."""
+    launch error. ``tile`` picks the kernel, ``_tile_path``'s choice when
+    None (a caller timing both kernels at one shape passes it)."""
     quant = k_scale is not None
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"ragged_paged_attention: q {tuple(q.shape)}, "
@@ -260,6 +308,13 @@ def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size,
                          f"{SUPPORTED_HEAD_DIMS}")
     if KV < 1 or H % KV:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
+    if tile is None:
+        tile = _tile_path(q_max, hd, q.dtype)
+    if tile:
+        if q.dtype != torch.bfloat16 or hd not in TILE_HEAD_DIMS:
+            raise ValueError(f"the tile path takes bf16 at head dims "
+                             f"{TILE_HEAD_DIMS}, not {q.dtype} at {hd}")
+        _check_tile_page_size(ps)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q must be one of {list(_DTYPE_CODE)}, got "
                         f"{q.dtype}")
@@ -304,10 +359,14 @@ def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size,
     out = torch.empty_like(q)
     common = (B, q_max, H, KV, hd, ps, block_table.shape[1],
               *q.stride()[:3], *k_pool.stride()[:3], *out.stride()[:3])
+    name = "ragged_paged_attention" + ("_quant" if quant else "") \
+        + ("_tile" if tile else "")
+    entry = ("rpa_tile" if tile else "rpa") \
+        + ("_quant_launch" if quant else "_launch")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if quant:
-            err = lib.rpa_quant_launch(
+            err = getattr(lib, entry)(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(),
                 block_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
@@ -316,13 +375,14 @@ def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size,
                 *k_scale.stride()[:2], block_table.stride(0),
                 ctypes.c_float(f32_scale(hd)), stream)
         else:
-            err = lib.rpa_launch(
+            # the tile path's TMA maps span the pool: its page count
+            sizes = common[:7] + ((k_pool.shape[0],) if tile else ()) \
+                + common[7:]
+            err = getattr(lib, entry)(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 block_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
-                out.data_ptr(), _DTYPE_CODE[q.dtype], *common,
+                out.data_ptr(), _DTYPE_CODE[q.dtype], *sizes,
                 block_table.stride(0), ctypes.c_float(f32_scale(hd)), stream)
-    name = "ragged_paged_attention_quant" if quant \
-        else "ragged_paged_attention"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"cudaError {err} ({_build.error_string(err)})")

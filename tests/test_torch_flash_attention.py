@@ -182,3 +182,39 @@ def test_kernel_source_and_bindings_agree():
         n_c = len(decl.group(1).split(","))
         argtypes, _ = _build.SIGNATURES["flash_attention"][name + "_launch"]
         assert len(argtypes) == n_c, name
+
+
+@pytest.mark.parametrize("bad", ["expanded_heads", "expanded_batch"])
+def test_tma_maps_reject_strides_they_cannot_take(bad):
+    """The bf16 forward reads q, k, v through TMA maps, so a dim of extent
+    > 1 stepped by stride 0 raises before anything builds or launches
+    (CPU tensors exercise the checks); f32 keeps its CUDA-core kernel and
+    no such check."""
+    x = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)
+    if bad == "expanded_heads":
+        y = torch.zeros(2, 8, 1, 64, dtype=torch.bfloat16).expand(2, 8, 4, 64)
+    else:
+        y = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16).expand(2, 8, 4, 64)
+    tfa._validate(y, y, y)                   # strides of 0 pass _check
+    with pytest.raises(ValueError, match="TMA"):
+        tfa._flash_fwd(x, y, x, True, 0.125)
+    for name, t in (("q", x), ("k", x.transpose(1, 2).contiguous()
+                                .transpose(1, 2))):
+        tfa._check_tma(name, t)              # any positive strides pass
+
+
+def test_forward_sits_on_the_hopper_tile_core():
+    """K1's bf16 instances are the Hopper tile core's (wgmma products,
+    TMA maps from cuTensorMapEncodeTiled through the runtime, no -lcuda),
+    f32 keeps the CUDA-core kernel, and K2 keeps its mma.sync helpers."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    core = (_build.CSRC / "hopper_attention.cuh").read_text()
+    assert '#include "hopper_attention.cuh"' in src
+    assert "flash_fwd_kernel<D><<<" in src
+    assert "flash_fwd_f32_kernel<T, D><<<" in src
+    assert "cudaGetDriverEntryPoint" in core and "-lcuda" not in \
+        " ".join(_build.NVCC_FLAGS)
+    assert "cp.async.bulk.tensor.4d" in core
+    assert "mma_abt" in src and "mma_pv" in src     # K2's products
+    argtypes, _ = _build.SIGNATURES["flash_attention"]["flash_fwd_launch"]
+    assert len(argtypes) == 15                       # signature unchanged

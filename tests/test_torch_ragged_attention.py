@@ -22,6 +22,7 @@ elements).
 """
 import ast
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -334,3 +335,190 @@ def test_kernel_source_builds_with_nvcc_and_plain_c():
     gitignore = (pathlib.Path(__file__).parents[1] / ".gitignore") \
         .read_text().split()
     assert "build/" in gitignore
+
+
+# ------------------------------------------------------------- tile path
+@pytest.mark.parametrize("q_max,hd,dtype,tile", [
+    (1, 128, torch.bfloat16, False),         # decode
+    (1, 64, torch.bfloat16, False),          # decode, head dim 64
+    (512, 16, torch.bfloat16, False),        # head dim 16
+    (512, 128, torch.float32, False),        # the f32 model
+    (2, 128, torch.bfloat16, True),          # the fewest suffix rows
+    (63, 128, torch.bfloat16, True),         # one row short of a tile
+    (512, 128, torch.bfloat16, True),        # serving's prefill bucket
+    (16, 128, torch.bfloat16, True),         # GQA suffix: 64 rows at 4
+    (2, 64, torch.bfloat16, True),           # suffix rows, head dim 64
+])
+def test_tile_path_rule(q_max, hd, dtype, tile):
+    """``_tile_path`` sends bf16 prefill and suffix rows (q_max > 1) at
+    head dims 64 and 128 to the tile kernel; decode, head dim 16 and f32
+    stay on ``rpa_kernel``."""
+    assert tra._tile_path(q_max, hd, dtype) is tile
+
+
+def _tile_case(seed, ps, q_lens=(40, 23), kv_lens=(97, 23), groups=2,
+               KV=2, hd=64, pmax=8):
+    """Pools and queries for a tile-path shape (bf16-able, head dim 64,
+    q_max·groups = 80 rows), random pages; dead rows zero."""
+    rng = np.random.RandomState(seed)
+    B = len(q_lens)
+    npool = 1 + B * pmax
+    kp = np.zeros((npool, ps, KV, hd), np.float32)
+    vp = np.zeros((npool, ps, KV, hd), np.float32)
+    bt = np.zeros((B, pmax), np.int32)
+    pages = 1 + rng.permutation(npool - 1)
+    n = 0
+    for b in range(B):
+        for j in range(-(-kv_lens[b] // ps)):
+            bt[b, j] = pages[n]
+            live = min(ps, kv_lens[b] - j * ps)
+            kp[pages[n], :live] = rng.randn(live, KV, hd)
+            vp[pages[n], :live] = rng.randn(live, KV, hd)
+            n += 1
+    q = rng.randn(B, max(q_lens), KV * groups, hd).astype(np.float32)
+    return (q, kp, vp, bt, np.asarray(q_lens, np.int32),
+            np.asarray(kv_lens, np.int32))
+
+
+@pytest.mark.parametrize("ps", [16, 32, 64])
+def test_tile_path_shapes_match_jax_interpret(ps):
+    """At shapes the tile path takes on the card (head dim 64, 80 rows of
+    q_max·groups, page sizes 16, 32 and 64), the plain version the tile
+    kernel is held to matches the JAX kernel in interpret mode, in f32 to
+    TOL as the other K3 cases (in bf16 the two frameworks round sums at
+    other places on the CPU)."""
+    q, kp, vp, bt, ql, kl = _tile_case(seed=ps, ps=ps)
+    assert tra._tile_path(q.shape[1], 64, torch.bfloat16)
+    ref = np.asarray(jra.ragged_paged_attention(
+        *(jnp.asarray(a) for a in (q, kp, vp, bt, ql, kl)), page_size=ps,
+        interpret=True))
+    out = tra.ragged_paged_attention(
+        *(torch.from_numpy(a) for a in (q, kp, vp, bt, ql, kl)),
+        page_size=ps).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=TOL)
+
+
+def _tolerance_before(q, k_pool, v_pool, block_table, q_lens, kv_lens, *,
+                      page_size, k_scale=None, v_scale=None):
+    """``tolerance`` as it stood before the tile path: one M term."""
+    out, mass, row, top = tra._plain(q, k_pool, v_pool, block_table, q_lens,
+                                     kv_lens, page_size, k_scale, v_scale,
+                                     bound_terms=True)
+    floor = tra.F32_TOL * tra.ROW_FLOOR * top
+    if q.dtype == torch.float32:
+        return (tra.F32_TOL * row + floor).expand(out.shape)
+    return tra.BF16_UNIT * tra.BF16_MARGIN * (mass + 2 * out.float().abs()) \
+        + floor
+
+
+@pytest.mark.parametrize("case", ["decode bf16", "decode f32", "tile f32",
+                                  "K4 decode bf16", "K4 decode f32",
+                                  "hd16 bf16"])
+def test_tolerance_unchanged_off_the_tile_path(case):
+    """Calls that stay on ``rpa_kernel`` (decode, f32, K4 decode, head
+    dim 16) keep their bound bit for bit."""
+    if case.startswith("tile"):
+        q, kp, vp, bt, ql, kl = _tile_case(seed=1, ps=16)
+    elif case.startswith("hd16"):
+        q, kp, vp, bt, ql, kl = _tile_case(seed=2, ps=16, q_lens=(5, 3),
+                                           kv_lens=(40, 9), hd=16)
+    else:
+        q, kp, vp, bt, ql, kl = _tile_case(seed=3, ps=16, q_lens=(1, 1),
+                                           kv_lens=(40, 9))
+    dtype = torch.float32 if case.endswith("f32") else torch.bfloat16
+    args = [torch.from_numpy(a) for a in (q, kp, vp, bt, ql, kl)]
+    args[0] = args[0].to(dtype)
+    kw = {"page_size": 16}
+    if case.startswith("K4"):
+        for i, pool in ((1, kp), (2, vp)):
+            s = np.abs(pool).max(-1) / 127 + 1e-3
+            args[i] = torch.from_numpy(np.round(pool / s[..., None])
+                                       .astype(np.int8))
+            kw["k_scale" if i == 1 else "v_scale"] = \
+                torch.from_numpy(s.astype(np.float32))
+    else:
+        args[1], args[2] = args[1].to(dtype), args[2].to(dtype)
+    assert not tra._tile_path(args[0].shape[1], args[0].shape[3], dtype)
+    assert torch.equal(tra.tolerance(*args, **kw),
+                       _tolerance_before(*args, **kw))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_tolerance_adds_one_mass_term_on_the_tile_path(quant):
+    """For a call ``_tile_path`` sends to the tile kernel, the bf16 bound
+    is BF16_UNIT·BF16_MARGIN·(2·M + 2·|out|) + floor: exactly one more
+    BF16_UNIT·M term (times the margin) than ``rpa_kernel``'s."""
+    q, kp, vp, bt, ql, kl = _tile_case(seed=4, ps=32)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, bt, ql, kl)]
+    args[0] = args[0].to(torch.bfloat16)
+    kw = {"page_size": 32}
+    if quant:
+        for i, pool in ((1, kp), (2, vp)):
+            s = np.abs(pool).max(-1) / 127 + 1e-3
+            args[i] = torch.from_numpy(np.round(pool / s[..., None])
+                                       .astype(np.int8))
+            kw["k_scale" if i == 1 else "v_scale"] = \
+                torch.from_numpy(s.astype(np.float32))
+    else:
+        args[1], args[2] = (a.to(torch.bfloat16) for a in args[1:3])
+    assert tra._tile_path(args[0].shape[1], 64, torch.bfloat16)
+    out, mass, _, top = tra._plain(*args, 32, kw.get("k_scale"),
+                                   kw.get("v_scale"), bound_terms=True)
+    unit = tra.BF16_UNIT * tra.BF16_MARGIN
+    floor = tra.F32_TOL * tra.ROW_FLOOR * top
+    bound = tra.tolerance(*args, **kw)
+    assert torch.equal(bound, unit * (2 * mass + 2 * out.float().abs())
+                       + floor)
+    extra = bound - _tolerance_before(*args, **kw)
+    assert float(mass.max()) > 0
+    torch.testing.assert_close(extra, unit * mass, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("ps,ok", [(8, True), (16, True), (64, True),
+                                   (128, True), (48, False), (96, False),
+                                   (24, False)])
+def test_tile_path_page_sizes(ps, ok):
+    """The tile path gathers 64-row key tiles: a page size that divides
+    64 or is a multiple of it is taken, any other raises."""
+    if ok:
+        tra._check_tile_page_size(ps)
+    else:
+        with pytest.raises(ValueError, match="page_size"):
+            tra._check_tile_page_size(ps)
+
+
+@pytest.mark.parametrize("bad", ["page_size", "f32", "head_dim"])
+def test_tile_wrapper_rejects_what_the_tile_kernel_cannot_take(bad):
+    """The wrapper validates a tile-path call before it builds or
+    launches anything (CPU tensors exercise the checks): a page size that
+    fits no 64-row tile, and a forced tile launch of an f32 model or a
+    head dim the tile kernel lacks, raise ValueError."""
+    ps = 48 if bad == "page_size" else 16
+    q, kp, vp, bt, ql, kl = _tile_case(seed=5, ps=ps)
+    dtype = torch.float32 if bad == "f32" else torch.bfloat16
+    args = [torch.from_numpy(a) for a in (q, kp, vp, bt, ql, kl)]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    if bad == "head_dim":
+        args[:3] = [a[..., :16].contiguous() for a in args[:3]]
+    tile = None if bad == "page_size" else True
+    with pytest.raises(ValueError, match="tile"):
+        tra._launch(*args, ps, tile=tile)
+
+
+def test_every_entry_point_agrees_with_its_signature():
+    """Each C entry point of the ragged library (rpa_kernel's, the tile
+    path's, the tile core's check) has as many arguments as its ctypes
+    signature in ``_build.SIGNATURES``, and the tile kernel sits on the
+    shared Hopper tile core."""
+    src = (_build.CSRC / "ragged_paged_attention.cu").read_text()
+    sigs = _build.SIGNATURES["ragged_paged_attention"]
+    assert {"rpa_tile_launch", "rpa_tile_quant_launch",
+            "hopper_wgmma_check"} <= set(sigs)
+    for name, (argtypes, _) in sigs.items():
+        decl = re.search(r"(?:int|const char\*) %s\(([^)]*)\)" % name, src)
+        assert decl, name
+        assert len(argtypes) == len(decl.group(1).split(",")), name
+    assert '#include "hopper_attention.cuh"' in src
+    assert "rpa_tile_kernel" in src and "cp_async16" in src
+    core = (_build.CSRC / "hopper_attention.cuh").read_text()
+    assert "wgmma.mma_async" in core and "torch/" not in core

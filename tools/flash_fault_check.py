@@ -16,13 +16,15 @@ max|ref|), to show what a per-tensor bound lets through. The copies:
 
 * ``none``     — the kernels as they are; must pass;
 * ``fwd_tile`` — flash_fwd drops the last visible kv tile of every q tile
-  that starts at or past L/2;
+  that starts at or past L/2, in the bf16 kernel on the Hopper tile core
+  (``flash_fwd_kernel``) and in the f32 one (``flash_fwd_f32_kernel``);
 * ``dq_tile``  — flash_bwd_dq drops the same tile;
 * ``dkv_tile`` — flash_bwd_dkv drops its last q tile for every kv tile
   that starts at or past S/2.
 
 Exits 0 when the unmutated kernels pass the per-row bound in both dtypes
-and every planted fault fails it in both.
+and every planted fault fails it in both by at least
+``fault_check.CATCH_FACTOR``.
 """
 from __future__ import annotations
 
@@ -31,16 +33,23 @@ import sys
 import numpy as np
 
 import fault_check
+from fault_check import Fault
 
 SEED = 7
 SHAPE = (1, 2048, 2048, 32, 128)          # B, L, S, H, D
 TILES = "  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;"
 TILES_CUT = ("  const int n_tiles = (kv_end > 0 ? (kv_end + kBK - 1) / kBK"
              " : 0) - (q0 >= p.L / 2);")
-# (source text, replacement, which occurrence: 0 in flash_fwd, 1 in dq)
+# the bf16 forward's tile count (flash_fwd_kernel, the Hopper tile core)
+KV_TILES = "  const int n_kv = kv_end > 0 ? (kv_end + kTile - 1) / kTile : 0;"
+KV_TILES_CUT = ("  const int n_kv = (kv_end > 0 ? (kv_end + kTile - 1) / kTile"
+                " : 0) - (q0 >= p.L / 2);")
+# (source text, replacement, which occurrence: TILES is 0 in the f32
+# forward, 1 in dq)
 FAULTS = {
     "none": None,
-    "fwd_tile": (TILES, TILES_CUT, 0),
+    "fwd_tile": Fault(sites=((KV_TILES, KV_TILES_CUT, 0),
+                             (TILES, TILES_CUT, 0))),
     "dq_tile": (TILES, TILES_CUT, 1),
     "dkv_tile": ("  for (int qt = qt0; qt < n_qt; ++qt) {",
                  "  for (int qt = qt0; qt < n_qt - (k0 >= p.S / 2); ++qt) {",

@@ -10,9 +10,11 @@ the repository. Phases, each failing the run when its check fails:
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — every kernel source, built with nvcc from the checkout (one
               nvcc per source, started together);
-3. kernels  — first the Hopper tile core's launch check: one wgmma tile
-              S = Q·Kᵀ and one P·V product against torch.matmul in f32,
-              exact on integer inputs; then the ragged paged-attention
+3. kernels  — first the Hopper tile core's launch checks: one wgmma tile
+              S = Q·Kᵀ and one P·V product, and the backward's forms (a
+              dS tile written by threads read as A, K read MN-major as B,
+              at D 64 and 128), against torch.matmul in f32, exact on
+              integer inputs; then the ragged paged-attention
               kernel (K3) against its plain PyTorch version on the card:
               decode, ragged prefill, suffix and q_len=0 rows, groups 1
               and 4, f32 and bf16 pools, dead pool rows and the scratch
@@ -44,29 +46,33 @@ the repository. Phases, each failing the run when its check fails:
               every pool row and scale at the codec of the forward's own
               K/V (``f32_pool_check``);
 5. times    — K3 and K4 (int8 and fp8) at the serving path's decode
-              (rpa_kernel) and prefill (rpa_tile_kernel, and rpa_kernel at
-              the same shape) shapes beside their byte bounds, their plain
-              versions and scaled_dot_product_attention (a yardstick the
-              port never calls; for K4 over K/V dequantized beforehand);
-              both kernels at suffix rows of 2 to 128 rows, for the
-              dispatch's crossover; CUDA events, median of 30 runs after
-              warm-up;
-6. flash    — the flash kernels (K1 forward; K2 as flash_bwd_dq and
-              flash_bwd_dkv) against their plain versions: f32 and bf16,
-              causal and not, at the training shape (B=1, L=S=2048, H=32,
-              D=128), a ragged length, L<S, L>S and D=64 with a scale,
-              each output row within its own bound; then each kernel's
-              time at the training shape beside its bound, its plain
-              version and SDPA's forward and backward, and K2's two
-              kernels together beside the bound of the whole backward;
+              (rpa_kernel, with its chunk count) and prefill
+              (rpa_tile_kernel, and rpa_kernel at the same shape) shapes
+              beside their byte bounds, their plain versions and
+              scaled_dot_product_attention (a yardstick the port never
+              calls; for K4 over K/V dequantized beforehand); both
+              kernels at suffix rows of 2 to 128 rows, for the dispatch's
+              crossover; decode over bf16, int8 and fp8 pages at B 1 and
+              4 and kv_len 128, 1024 and 4096 with its chunk counts; CUDA
+              events, median of 30 (20) runs after warm-up. The parent's
+              kernels in turns with these: tools/kernel_turns.py;
+6. flash    — the flash kernels (K1 forward; K2: flash_bwd in bf16,
+              flash_bwd_dq and flash_bwd_dkv in f32) against their plain
+              versions: f32 and bf16, causal and not, at the training
+              shape (B=1, L=S=2048, H=32, D=128), a ragged length (200),
+              L<S, L>S and D=64 with a scale, each output row within its
+              own bound; then K1's and K2's whole bf16 launch times at the
+              training shape, causal and not, beside their bounds, their
+              plain versions and SDPA's forward and backward;
 7. training — Llama-2-7B, bf16, B=1, T=2048, AdamW (lr 3e-4, weight
               decay 0.1, bf16 moments), remat: one full-width layer with
               K1/K2 against the plain versions (its attention output row
               by row, its nine weight gradients), the first loss in bf16
               against f32 weights, five steps with falling finite losses,
-              the K1/K2 launch counts the path implies (2, 1 and 1 per
-              layer per step), step time, tokens/s, peak memory, and one
-              profiled step;
+              the K1/K2 launch counts the path implies (flash_fwd 2 and
+              flash_bwd 1 per layer per step, the f32 backward kernels
+              0), step time, tokens/s, peak memory, and one profiled
+              step;
 8. sparse   — the block-sparse kernels (K5 ``bsa_fwd``; K6 ``bsa_bwd_dq``
               and ``bsa_bwd_dkv``) against their plain versions on nine
               patterns (partial 16-blocks, tril, duplicates, a fully
@@ -138,11 +144,11 @@ def time_ms(fn, iters=30, warmup=5, device_only=True):
 
 def ptxas_by_kernel(log):
     """(kernel, "Used N registers, ..." line) for each entry function in
-    an nvcc -Xptxas -v log; the kernel is the function's name (the
-    length-prefixed mangled name that ends in "kernel") and its mangled
-    template arguments."""
+    an nvcc -Xptxas -v log, with its spill line appended when it spills;
+    the kernel is the function's name (the length-prefixed mangled name
+    that ends in "kernel") and its mangled template arguments."""
     import re
-    out, kernel = [], None
+    out, kernel, spill = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
@@ -157,9 +163,12 @@ def ptxas_by_kernel(log):
                         break
                 if kernel != fn:
                     break
+        elif "spill" in ln and kernel:
+            spill = "" if " 0 bytes spill stores, 0 bytes spill loads" in ln \
+                else "; " + ln.strip()
         elif "Used" in ln and "registers" in ln and kernel:
-            out.append((kernel, ln.split(":", 1)[-1].strip()))
-            kernel = None
+            out.append((kernel, ln.split(":", 1)[-1].strip() + spill))
+            kernel, spill = None, ""
     return out
 
 
@@ -245,7 +254,54 @@ def wgmma_unit_check(device="cuda"):
     check(s_rel <= 1e-5 and o_rel <= 1e-5, f"wgmma N(0,1) check: S "
           f"{s_rel}, O {o_rel} of their max")
     return {"exact_s": s_err, "exact_o": o_err, "s_rel": s_rel,
-            "o_rel": o_rel}
+            "o_rel": o_rel, "backward": bwd_wgmma_check(device)}
+
+
+def bwd_wgmma_check(device="cuda"):
+    """The backward's operand forms (``flash_bwd_wgmma_check``): dSᵀ
+    [64 keys, 64 queries] taken by the threads in wgmma's accumulator
+    layout, written by them as the bf16 swizzled dS tile (``store_ds``)
+    and read back as a K-major A operand, times K [64, D] read MN-major as
+    B (``dq_product``: wgmma m64n64k16 with B through the transpose bit,
+    D/64 of them), at D = 64 and 128, against torch.matmul in f32: exact
+    on inputs in {-1, 0, 1} (sums of at most 64 such products), then
+    within 1e-5 of the max on N(0,1) inputs against bf16(dSᵀ)ᵀ·K."""
+    import torch
+    from paddle_tpu_torch.ops import _build
+    lib = _build.load("flash_attention")
+    rng = np.random.default_rng(SEED + 15)
+    res = {}
+    for D in (64, 128):
+        for kind in ("exact", "normal"):
+            if kind == "exact":
+                x = rng.integers(-1, 2, (64, 64)).astype(np.float32)
+                k = rng.integers(-1, 2, (64, D)).astype(np.float32)
+            else:
+                x = rng.standard_normal((64, 64), np.float32)
+                k = rng.standard_normal((64, D), np.float32)
+            xt = torch.from_numpy(x).to(device)
+            kt = torch.from_numpy(k).to(device, torch.bfloat16)
+            o = torch.empty(64, D, device=device)
+            err = lib.flash_bwd_wgmma_check(
+                xt.data_ptr(), kt.data_ptr(), o.data_ptr(), D,
+                torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"backward wgmma check launch: cudaError {err} "
+                  f"({_build.error_string(err)})")
+            torch.cuda.synchronize()
+            ref = xt.bfloat16().float().T @ kt.float()
+            e = float((o - ref).abs().max())
+            if kind == "exact":
+                check(e == 0, f"backward wgmma exact check D={D}: error {e}")
+                res[f"exact_d{D}"] = e
+            else:
+                rel = e / float(ref.abs().max())
+                check(rel <= 1e-5, f"backward wgmma N(0,1) check D={D}: "
+                      f"{rel} of the max")
+                res[f"rel_d{D}"] = rel
+    print("  backward wgmma check (dS written by threads as A, K MN-major "
+          "as B): " + ", ".join(f"{k} {v:.2e}" for k, v in res.items()),
+          flush=True)
+    return res
 
 
 def rpa_compare(args, ps, scales=()):
@@ -884,6 +940,8 @@ def timed_shape(kind, B, q_len, kv_len, H, KV, hd, ps, max_pages,
     pages = f" {kv_dtype} pages" if kv_dtype else ""
     rec = {"shape": f"{kind}: B={B} q_len={q_len} kv_len={kv_len} H={H} "
                     f"KV={KV} hd={hd} page_size={ps} bf16{pages}",
+           "splits": None if tile else decode_splits(B, q_len, H, KV,
+                                                     max_pages, ps, kv_dtype),
            "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -901,6 +959,105 @@ def timed_shape(kind, B, q_len, kv_len, H, KV, hd, ps, max_pages,
           f"({rec['bound_by']}), plain {plain_ms:.4f} ms, {label} "
           f"{sdpa_ms:.4f} ms{other}, max_abs_err {err:.3e}", flush=True)
     return rec
+
+
+def decode_splits(B, q_len, H, KV, max_pages, ps, kv_dtype=None):
+    """rpa_kernel's chunk count at these shapes (``_split_plan``)."""
+    import torch
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    span = q_len * (H // KV)
+    rows = ra._rows_per_block(span, bool(kv_dtype))
+    tiles = B * KV * -(-span // rows)
+    return ra._split_plan(tiles, max_pages * ps, ps,
+                          ra._sm_count(torch.cuda.current_device()))[0]
+
+
+DECODE_SWEEP = {"B": (1, 4), "kv_len": (128, 1024, 4096)}
+# rpa_kernel's split planner's constants (DECODE_WAVES, MIN_CHUNK_ROWS)
+# timed against the chosen ones over bf16 pages in the decode sweep
+PLAN_ALTERNATIVES = ((2, 128), (8, 128), (4, 64), (4, 256))
+
+
+def plan_alternatives(args, B, kv_len, KV, ps):
+    """rpa_kernel over bf16 pages at the split plans that
+    PLAN_ALTERNATIVES' (DECODE_WAVES, MIN_CHUNK_ROWS) give, each plan once:
+    {"(splits, chunk)": ms}. The module's constants are restored after."""
+    import torch
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    keep = ra.DECODE_WAVES, ra.MIN_CHUNK_ROWS
+    n_sm = ra._sm_count(torch.cuda.current_device())
+    seen = {ra._split_plan(B * KV, kv_len, ps, n_sm)}
+    out = {}
+    try:
+        for waves, rows in PLAN_ALTERNATIVES:
+            ra.DECODE_WAVES, ra.MIN_CHUNK_ROWS = waves, rows
+            plan = ra._split_plan(B * KV, kv_len, ps, n_sm)
+            if plan in seen:
+                continue
+            seen.add(plan)
+            out[str(plan)] = time_ms(lambda: ra.ragged_paged_attention(
+                *args, page_size=ps), iters=20)
+    finally:
+        ra.DECODE_WAVES, ra.MIN_CHUNK_ROWS = keep
+    return out
+
+
+def decode_sweep(H, KV, hd, ps=16):
+    """rpa_kernel's decode (one query row a slot) over bf16, int8 and fp8
+    pages at B in DECODE_SWEEP["B"] and kv_len in DECODE_SWEEP["kv_len"]
+    (a table that reaches kv_len exactly): the chunk count, device time by
+    CUDA events (median of 20), the byte bound (q and out, the live K/V
+    rows and K4's scales, the table and lengths at 3.35 TB/s) and, over
+    bf16 pages, SDPA over the same rows gathered contiguous and the other
+    split plans of PLAN_ALTERNATIVES. Returns {pages: {"B=..., kv_len=...":
+    {...}}}."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    rng = np.random.default_rng(SEED + 16)
+    table = {}
+    for B in DECODE_SWEEP["B"]:
+        for kv_len in DECODE_SWEEP["kv_len"]:
+            max_pages = -(-kv_len // ps)
+            args = make_case(rng, [1] * B, [kv_len] * B, H, KV, hd, ps,
+                             max_pages, torch.bfloat16)
+            q, kp, vp, bt = args[:4]
+            rows = bt.long()
+            kc = kp[rows].reshape(B, -1, KV, hd).transpose(1, 2).contiguous()
+            vc = vp[rows].reshape(B, -1, KV, hd).transpose(1, 2).contiguous()
+            gqa = {"enable_gqa": True} if H != KV else {}
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc, vc, **gqa), iters=20)
+            for pages in ("bf16", "int8", "fp8"):
+                kw = {"page_size": ps}
+                case = args
+                if pages != "bf16":
+                    qa = quantize_case(args, pages)
+                    case = qa[:6]
+                    kw.update(k_scale=qa[6], v_scale=qa[7])
+                ms = time_ms(lambda: ra.ragged_paged_attention(*case, **kw),
+                             iters=20)
+                row_head = case[1].element_size() * hd + \
+                    (4 if pages != "bf16" else 0)
+                nbytes = 2 * 2 * B * H * hd + 2 * B * kv_len * KV * \
+                    row_head + 4 * (bt.numel() + 2 * B)
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                splits = decode_splits(B, 1, H, KV, max_pages, ps,
+                                       None if pages == "bf16" else pages)
+                other = plan_alternatives(case, B, kv_len, KV, ps) \
+                    if pages == "bf16" else {}
+                table.setdefault(pages, {})[f"B={B} kv_len={kv_len}"] = {
+                    "splits": splits, "ms": ms, "bound_ms": bound,
+                    "gb_per_s": nbytes / ms / 1e6,
+                    "sdpa_ms": sdpa if pages == "bf16" else None,
+                    "other_plans_ms": other}
+                print(f"  decode sweep {pages} pages B={B} kv_len={kv_len}: "
+                      f"{splits} chunks, rpa_kernel {ms:.4f} ms "
+                      f"({nbytes / ms / 1e6:.0f} GB/s), bound {bound:.4f} ms"
+                      + (f", sdpa {sdpa:.4f} ms" if pages == "bf16" else "")
+                      + "".join(f", plan {k} {v:.4f} ms"
+                                for k, v in other.items()), flush=True)
+    return table
 
 
 CROSSOVER_Q = (2, 4, 8, 16, 32, 64, 128)
@@ -980,8 +1137,10 @@ def flash_err(name, out, ref, dtype):
 
 def flash_cases():
     """K1 and K2 against their plain versions: every case of FLASH_CASES
-    in f32 and bf16, causal and not, each output held row by row. Returns
-    {kernel: worst error at the path's bf16 causal shape}."""
+    in f32 and bf16, causal and not, each output held row by row (bf16
+    K2: flash_bwd, whose dq sums f32 partials in a run-dependent order;
+    f32: flash_bwd_dq and flash_bwd_dkv). Returns {kernel: worst error at
+    the path's bf16 causal shape}."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     rng = np.random.default_rng(SEED + 4)
@@ -1021,19 +1180,22 @@ def flash_cases():
                     shares[key] = max(shares.get(key, 0.0), r)
                 if label == "path" and dtype == torch.bfloat16 and causal:
                     worst = {"flash_fwd": errs["out"][0],
-                             "flash_bwd_dq": errs["dq"][0],
-                             "flash_bwd_dkv": max(errs["dk"][0],
-                                                  errs["dv"][0])}
+                             "flash_bwd": max(errs[g][0]
+                                              for g in ("dq", "dk", "dv"))}
     print("  worst share of the per-row bound over the cases: " +
           ", ".join(f"{k} {v:.3f}" for k, v in shares.items()), flush=True)
     return worst
 
 
 def flash_times(errs):
-    """K1 and both K2 kernels at the training path's shape (bf16, causal,
-    B=1, L=S=2048, H=32, D=128) beside their bounds, the plain versions
-    and scaled_dot_product_attention's forward and backward (a yardstick
-    the port never calls). CUDA events, median of 30 after 5 warm-ups."""
+    """K1 and K2 (bf16) at the training path's shape (B=1, L=S=2048, H=32,
+    D=128, causal, and K2 also non-causal) beside their bounds, the plain
+    versions and scaled_dot_product_attention's forward and backward (a
+    yardstick the port never calls). K2 is timed as the training path
+    calls it, the whole ``flash_bwd`` launch: the preparation kernel
+    (delta, lse·log2e, the accumulator zeroed), ``flash_bwd_kernel`` and
+    the conversion, with their scratch allocated. CUDA events, median of
+    30 after 5 warm-ups."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1041,70 +1203,61 @@ def flash_times(errs):
     rng = np.random.default_rng(SEED + 5)
     q, k, v, do = flash_inputs(rng, B, L, S, H, D, torch.bfloat16)
     scale = fa._scale(D, None)
-    out, lse = fa._flash_fwd(q, k, v, True, scale)
-    delta = fa._bwd_delta(out, do)
-    fwd_ms = time_ms(lambda: fa._flash_fwd(q, k, v, True, scale))
-    dq_ms = time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta, True, scale))
-    dkv_ms = time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta, True,
-                                         scale))
-    plain_fwd = time_ms(lambda: fa.flash_attention_reference(q, k, v, True))
-    plain_bwd = time_ms(lambda: fa.flash_attention_bwd_reference(
-        q, k, v, out, lse, do, True))
-    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True))
-    ref = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    dos = do.transpose(1, 2)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(ref, (qs, ks, vs), dos,
-                                                  retain_graph=True))
-    pairs = B * H * sum(min(S, r + S - L + 1) for r in range(L))
     item = 2
     qkv = item * B * (L + 2 * S) * H * D
     rows = 4 * B * H * L                          # one f32 per row
-    work = {   # (flops, bytes): each input read once, each output written
-        "flash_fwd": (4 * D * pairs, qkv + item * B * L * H * D + rows),
-        "flash_bwd_dq": (6 * D * pairs,
-                         qkv + 2 * item * B * L * H * D + 2 * rows),
-        "flash_bwd_dkv": (8 * D * pairs,
-                          qkv + item * B * L * H * D + 2 * rows
-                          + 2 * item * B * S * H * D),
-    }
-    times = {"flash_fwd": (fwd_ms, plain_fwd, lib_fwd),
-             "flash_bwd_dq": (dq_ms, plain_bwd, lib_bwd),
-             "flash_bwd_dkv": (dkv_ms, plain_bwd, lib_bwd)}
-    shape = f"B={B} L=S={L} H={H} D={D} bf16 causal"
+    shape = f"B={B} L=S={L} H={H} D={D} bf16"
     recs = {}
-    for name, (flops, nbytes) in work.items():
-        ms, plain_ms, lib_ms = times[name]
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        recs[name] = {"ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": max(t_ops, t_bytes),
-                      "bound_by": "operations" if t_ops >= t_bytes
-                      else "bytes",
-                      "library_ms": lib_ms, "max_abs_err": errs.get(name),
-                      "shape": shape, "flops": flops, "bytes": nbytes,
-                      "tflops_per_s": flops / ms / 1e9}
-        print(f"  {name} {shape}: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), bound "
-              f"{recs[name]['bound_ms']:.4f} ms ({recs[name]['bound_by']}), "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms", flush=True)
-    # K2 as a whole needs 5 products per visible pair (s, dp, dv, ds·k,
-    # dsᵀ·q); the dq/dkv split recomputes s and dp in both kernels (7)
-    k2_ms = dq_ms + dkv_ms
-    k2_split = recs["flash_bwd_dq"]["bound_ms"] \
-        + recs["flash_bwd_dkv"]["bound_ms"]
-    k2_bound = max(10 * D * pairs / PEAK_FLOPS["bfloat16"] * 1e3,
-                   (qkv + 2 * item * B * L * H * D + 2 * rows
-                    + item * B * (L + 2 * S) * H * D) / HBM_BYTES_PER_S * 1e3)
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        recs[name].update(k2_ms=k2_ms, k2_bound_ms=k2_bound)
-    print(f"  K2 whole (flash_bwd_dq + flash_bwd_dkv) {shape}: {k2_ms:.4f} "
-          f"ms, bound of the whole backward {k2_bound:.4f} ms (5 products; "
-          f"the split's 7 sum to {k2_split:.4f} ms in the two kernels' "
-          f"bounds), plain {plain_bwd:.4f} ms, sdpa {lib_bwd:.4f} ms",
-          flush=True)
+    for causal in (True, False):
+        out, lse = fa._flash_fwd(q, k, v, causal, scale)
+        fwd_ms = time_ms(lambda: fa._flash_fwd(q, k, v, causal, scale))
+        bwd_ms = time_ms(lambda: fa._flash_bwd(q, k, v, out, lse, do, causal,
+                                               scale))
+        plain_fwd = time_ms(lambda: fa.flash_attention_reference(q, k, v,
+                                                                 causal))
+        plain_bwd = time_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal))
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal))
+        ref = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        dos = do.transpose(1, 2)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            ref, (qs, ks, vs), dos, retain_graph=True))
+        pairs = B * H * sum(min(S, r + S - L + 1) if causal else S
+                            for r in range(L))
+        work = {   # (flops, bytes): each input read once, each output
+            # written once; the backward's 5 products per visible pair
+            # (s, dp, dv, dk, dq) read q, k, v, out, dout, lse and write
+            # dq, dk, dv
+            "flash_fwd": (4 * D * pairs, qkv + item * B * L * H * D + rows),
+            "flash_bwd": (10 * D * pairs,
+                          qkv + 2 * item * B * L * H * D + rows
+                          + item * B * (L + 2 * S) * H * D),
+        }
+        times = {"flash_fwd": (fwd_ms, plain_fwd, lib_fwd),
+                 "flash_bwd": (bwd_ms, plain_bwd, lib_bwd)}
+        tag = f"{shape} {'causal' if causal else 'non-causal'}"
+        for name, (flops, nbytes) in work.items():
+            ms, plain_ms, lib_ms = times[name]
+            t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            rec = {"ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_ms": lib_ms, "max_abs_err": errs.get(name),
+                   "shape": tag, "flops": flops, "bytes": nbytes,
+                   "tflops_per_s": flops / ms / 1e9}
+            print(f"  {name} {tag}: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+                  f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms", flush=True)
+            if causal:
+                recs[name] = rec
+            else:
+                recs[name]["non_causal"] = rec
+        del qs, ks, vs, ref
     return recs
 
 
@@ -1200,8 +1353,10 @@ def profile_train_step(step, toks, labels):
     def share(*keys):
         return sum(r[0] for r in rows if any(k in r[2] for k in keys))
 
-    flash = {k: share(k + "_kernel") for k in ("flash_fwd", "flash_bwd_dq",
-                                               "flash_bwd_dkv")}
+    # K2's launch runs three kernels: preparation, the backward, conversion
+    flash = {"flash_fwd": share("flash_fwd_kernel"),
+             "flash_bwd": share("flash_bwd_kernel", "flash_bwd_prep_kernel",
+                                "flash_bwd_convert_kernel")}
     gemm = share("nvjet", "gemm", "sm90_xmma", "cutlass")
     int64 = share("<long")        # the int64 passes of _sr_cast's hash
     print(f"[profile] one training step: host wall {wall_ms:.1f} ms, device "
@@ -1273,13 +1428,14 @@ def training_phase(cfg, device="cuda"):
         print(f"[train] step {i + 1}: loss {float(losses[-1]):.6f}, "
               f"{secs[-1] * 1e3:.1f} ms, peak allocated {peaks[-1]:.2f} GiB",
               flush=True)
-    launches = {k: fa.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dq",
-                                            "flash_bwd_dkv")}
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd",
+                                            "flash_bwd_dq", "flash_bwd_dkv")}
     vals = [float(x) for x in losses]
     n_layers = cfg.num_hidden_layers
+    # bf16 K2 is one flash_bwd launch a layer; its f32 kernels never run
     expect = {"flash_fwd": 2 * n_layers * TRAIN_STEPS,
-              "flash_bwd_dq": n_layers * TRAIN_STEPS,
-              "flash_bwd_dkv": n_layers * TRAIN_STEPS}
+              "flash_bwd": n_layers * TRAIN_STEPS,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     med = statistics.median(secs[1:])
     print(f"[train] losses {vals}; median step (steps 2-{TRAIN_STEPS}) "
           f"{med * 1e3:.1f} ms = {TRAIN_T / med:.1f} tokens/s; peak "
@@ -1437,6 +1593,7 @@ def serving_phases(cfg):
                    timed_shape("prefill", 4, 512, 512, H, KV, hd, 16, 64, kv))
               for kv in ("int8", "fp8")}
     cross = tile_crossover(H, KV, hd)
+    sweep = decode_sweep(H, KV, hd)
     k3_n = launches["rpa"] + launches["tile"]
     k4_n = {kv: q["launches"]["rpa"] + q["launches"]["tile"]
             for kv, q in quant.items()}
@@ -1449,8 +1606,10 @@ def serving_phases(cfg):
     src = "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu"
     k3 = {"name": "ragged_paged_attention", "route": "cuda", "source": src,
           "replaces": "paddle_tpu/ops/ragged_attention.py:97",
-          "path": "rpa_kernel: decode rows (and f32, head dim 16)",
+          "path": "rpa_kernel: decode rows (and f32, head dim 16), keys "
+                  "split in chunks merged in the launch",
           "launches": launches["rpa"], **{k: decode[k] for k in keys},
+          "splits": decode["splits"], "decode_sweep": sweep["bf16"],
           "launches_per_token": k3_n / n_tok,
           "tokens_per_s": n_tok / seconds}
     k3_tile = {"name": "ragged_paged_attention_tile", "route": "cuda",
@@ -1463,8 +1622,11 @@ def serving_phases(cfg):
     dec8, pre8 = qtimes["int8"]
     k4 = {"name": "ragged_paged_attention_quant", "route": "cuda",
           "source": src, "replaces": "paddle_tpu/ops/ragged_attention.py:194",
-          "path": "rpa_kernel: decode rows (and f32, head dim 16)",
+          "path": "rpa_kernel: decode rows (and f32, head dim 16), keys "
+                  "split in chunks merged in the launch",
           "launches": sum(q["launches"]["rpa"] for q in quant.values()),
+          "splits": dec8["splits"],
+          "decode_sweep": {kv: sweep[kv] for kv in ("int8", "fp8")},
           "launches_by_kv_dtype": {kv: q["launches"]["rpa"]
                                    for kv, q in quant.items()},
           **{k: dec8[k] for k in keys},
@@ -1834,14 +1996,15 @@ def sparse_phase(device="cuda"):
 
 FLASH_REPLACES = {
     "flash_fwd": "paddle_tpu/ops/flash_attention.py:316",
-    "flash_bwd_dq": "paddle_tpu/ops/flash_attention.py:201",
-    "flash_bwd_dkv": "paddle_tpu/ops/flash_attention.py:243",
+    # one kernel for both of K2's (dq_kernel :201, dkv_kernel :243)
+    "flash_bwd": "paddle_tpu/ops/flash_attention.py:201",
 }
 # the kernel each record's bf16 times and launches come from
 PATHS = {
     "flash_fwd": "flash_fwd_kernel: Hopper tile core (wgmma, TMA ring)",
-    "flash_bwd_dq": "flash_bwd_dq_kernel: mma.sync tiles",
-    "flash_bwd_dkv": "flash_bwd_dkv_kernel: mma.sync tiles",
+    "flash_bwd": "flash_bwd_kernel: Hopper tile core, 5 wgmma products, "
+                 "f32 dq by TMA reduce-adds (with its prep and convert "
+                 "kernels)",
     "bsa_fwd": "bsa_fwd_kernel: mma.sync tiles over the 64-tile plan",
     "bsa_bwd_dq": "bsa_bwd_dq_kernel: mma.sync tiles over the plan",
     "bsa_bwd_dkv": "bsa_bwd_dkv_kernel: mma.sync tiles over the plan",
@@ -1922,6 +2085,7 @@ def main() -> int:
                         "replaces": FLASH_REPLACES[name],
                         "path": PATHS[name], "launches": launches[name],
                         **rec})
+    records[-1]["replaces_also"] = "paddle_tpu/ops/flash_attention.py:243"
     # 8. block-sparse attention: K5 and K6, sparse.fused_attention
     t0 = time.perf_counter()
     records += sparse_phase()

@@ -33,12 +33,15 @@ _L = ctypes.c_longlong
 # C signature of each kernel library's entry points: (argtypes, restype)
 SIGNATURES = {
     "ragged_paged_attention": {
-        "rpa_launch": ([_P] * 7 + [_I] * 8 + [_L] * 10
+        # pointers (q, pools, table, lens, out, workspace, tickets), dtype,
+        # sizes, the split plan (rows, splits, chunk), strides (q, pools,
+        # out), table stride, scale, stream
+        "rpa_launch": ([_P] * 9 + [_I] * 11 + [_L] * 10
                        + [ctypes.c_float, _P], _I),
-        # pointers (q, pools, scales, table, lens, out), dtype, payload,
-        # sizes, strides (q, pools, out, scales), table stride, scale,
-        # stream
-        "rpa_quant_launch": ([_P] * 9 + [_I] * 9 + [_L] * 12
+        # pointers (q, pools, scales, table, lens, out, workspace,
+        # tickets), dtype, payload, sizes, the split plan, strides (q,
+        # pools, out, scales), table stride, scale, stream
+        "rpa_quant_launch": ([_P] * 11 + [_I] * 12 + [_L] * 12
                              + [ctypes.c_float, _P], _I),
         # the tile path (prefill and suffix rows): rpa_launch's arguments
         # and the pool's page count; rpa_quant_launch's
@@ -54,10 +57,16 @@ SIGNATURES = {
         # pointers, dtype, B, L, S, H, D, causal, scale, strides, stream
         "flash_fwd_launch": ([_P] * 5 + [_I] * 7 + [ctypes.c_float, _P, _P],
                              _I),
+        # q, k, v, out, dout, lse, lse2, delta, dq_acc, dq, dk, dv, then
+        # as above
+        "flash_bwd_launch": ([_P] * 12 + [_I] * 7
+                             + [ctypes.c_float, _P, _P], _I),
         "flash_bwd_dq_launch": ([_P] * 7 + [_I] * 7
                                 + [ctypes.c_float, _P, _P], _I),
         "flash_bwd_dkv_launch": ([_P] * 8 + [_I] * 7
                                  + [ctypes.c_float, _P, _P], _I),
+        # x, k, out, D, stream
+        "flash_bwd_wgmma_check": ([_P] * 3 + [_I, _P], _I),
     },
     "block_sparse_attention": {
         # tensor pointers, the tile plan (ptr, ent, bits), dtype, B, T, H,

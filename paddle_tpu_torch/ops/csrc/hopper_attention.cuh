@@ -1,7 +1,8 @@
-// The Hopper forward tile core shared by the port's attention kernels:
-// flash_attention.cu's bf16 forward (K1, `flash_fwd_kernel`) and
-// ragged_paged_attention.cu's prefill and suffix rows (K3/K4,
-// `rpa_tile_kernel`). One warpgroup (4 warps, 128 threads) owns a 64-row
+// The Hopper tile core shared by the port's attention kernels:
+// flash_attention.cu's bf16 forward and backward (K1 `flash_fwd_kernel`,
+// K2 `flash_bwd_kernel`, which also uses its wgmma forms with an A or B
+// operand transposed and its bulk copies) and ragged_paged_attention.cu's
+// prefill and suffix rows (K3/K4, `rpa_tile_kernel`). One warpgroup (4 warps, 128 threads) owns a 64-row
 // query tile and walks 64-row key tiles (K1 puts two warpgroups on one
 // K/V ring):
 //   * S = Q·Kᵀ on `wgmma.mma_async` m64n64k16 with both operands K-major in
@@ -85,6 +86,15 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Barrier `id` (1..15; 0 is __syncthreads') over `count` threads.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 // Keeps the compiler from moving accesses of accumulator registers across
 // an asynchronous wgmma.
 template <int N>
@@ -106,6 +116,32 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] = A·B (+ D when `accumulate`), A a K-major bf16 tile in
+// shared memory, B an MN-major one (stored [K rows][N contiguous], read
+// through the descriptor's transpose bit): the backward's dQ = dS·K.
+__device__ __forceinline__ void wgmma_ss_n64_mnb(float (&d)[32], uint64_t da,
+                                                  uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -249,6 +285,47 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Adds the box at src (shared memory, laid out as the map's box and
+// swizzle) into a 4D tensor map's elements at coordinates (c0, c1, c2,
+// c3), innermost first, by the bulk-copy engine; coordinates past the
+// tensor are skipped. Completion is tracked by bulk groups of the issuing
+// thread (bulk_commit, bulk_wait_read, bulk_wait).
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared
+// memory (their sources may then be rewritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from src (16-byte aligned)
+// into dst by the bulk-copy engine, completion counted on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // 16 (or 4) bytes global -> shared, asynchronously; src_bytes = 0 reads
 // nothing and writes zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -279,6 +356,14 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ----------------------------------------------------- the tile core
+// 2^x by the hardware's approximation (relative error ≤ 2^-22, results
+// below 2^-126 flushed to 0), without exp2f's extra range handling.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -312,6 +397,29 @@ __device__ __forceinline__ void qk_tile(float (&s)[32], const uint8_t* sQ,
   fence_regs(s);
 }
 
+// Keeps A fragments that an asynchronous wgmma reads from registers live
+// (unmoved, not reused) up to this point: call it after the wait.
+__device__ __forceinline__ void hold_frags(const uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" ::"r"(a[i][j]) : "memory");
+}
+
+// A 64-column accumulator (the S layout) rounded to bf16 as wgmma's A
+// fragments of its four 16-column k steps: the accumulator's row pairs
+// are the fragment's.
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
+                                           const float (&p)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(p[8 * kk + 0], p[8 * kk + 1]);
+    a[kk][1] = pack_bf16(p[8 * kk + 2], p[8 * kk + 3]);
+    a[kk][2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
+    a[kk][3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);
+  }
+}
+
 // O += P·V for one tile: p (64 keys of this thread's rows, the S
 // accumulator layout) rounded to bf16 as wgmma's A fragment, sV a 64-row
 // tile of HD columns read MN-major.
@@ -320,13 +428,7 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
                                         const float (&p)[32],
                                         const uint8_t* sV) {
   uint32_t a[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(p[8 * kk + 0], p[8 * kk + 1]);
-    a[kk][1] = pack_bf16(p[8 * kk + 2], p[8 * kk + 3]);
-    a[kk][2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
-    a[kk][3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);
-  }
+  to_a_frags(a, p);
   fence_regs(o);
   wg_fence();
 #pragma unroll
@@ -482,6 +584,31 @@ inline int encode_bnhd(CUtensorMap* map, const void* ptr, int B, int N, int H,
   const cuuint32_t box[4] = {64, 1, kTile, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 4D TMA map over a contiguous f32 [B, N, H, D] tensor: box [32
+// columns, 1 head, 64 rows, 1] (128 bytes a row, the 128-byte swizzle), so
+// a 64-column f32 tile is two boxes. Returns a cudaError_t code.
+inline int encode_bnhd_f32(CUtensorMap* map, const void* ptr, int B, int N,
+                           int H, int D) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t e = sizeof(float);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {D * e, static_cast<cuuint64_t>(H) * D * e,
+                                 static_cast<cuuint64_t>(N) * H * D * e};
+  const cuuint32_t box[4] = {32, 1, kTile, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

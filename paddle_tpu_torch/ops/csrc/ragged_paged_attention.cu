@@ -34,29 +34,29 @@
 // scales (33 MiB) at least 10 us. A 4×512-row prefill reads as much and
 // does 4·hd flops per (row, column) pair, 8.6 GFLOP: 0.020 ms of bytes
 // against 0.009 ms of bf16 tensor-core time. rpa_kernel therefore:
-//   * reads only the ceil(kv_len/page_size) live pages, page addresses by
-//     block-table pointer arithmetic, and never touches a row at or past
-//     the row limit, payload or scale (no NaN or stale row in a dead tail
-//     or in the scratch page can reach the output — such rows are
+//   * splits the keys of each (slot, kv head, query rows) tile into
+//     page-aligned chunks over the grid's third axis when the tiles alone
+//     would not fill the card several times over (B·KV = 128 decode
+//     tiles against 132 SMs; ops/ragged_attention.py's `_split_plan`
+//     picks the chunk from the shapes), and merges the chunks' partials
+//     in the same launch (see its comment);
+//   * reads only the live pages of its chunk, their block-table entries
+//     staged in shared memory once, and never touches a row at or past
+//     the rows' limit, payload or scale (no NaN or stale row in a dead
+//     tail or in the scratch page can reach the output — such rows are
 //     skipped, not weighted 0);
 //   * loads each K/V row once per block and uses it for every query row
 //     the block holds (all `groups` query heads of one kv head, and up to
-//     8 query rows), a warp reading one contiguous row: 8 or 16 bytes per
-//     lane for K3, 4 payload bytes per lane at hd 128 for K4 (the same
-//     element-to-lane map, one byte per element), plus the row's one
-//     scale, which every lane of the warp reads at one address;
-//   * spreads a block's keys over 8-16 warps with 4 rows in flight per
-//     warp, each warp keeping an online softmax (running max, sum and
-//     accumulator in f32), merged across warps through shared memory.
+//     8 query rows), 16 bytes a lane, with the next step's rows in flight
+//     while the current step computes; K4 reads a row's one scale at one
+//     address for every lane of the row.
 // rpa_tile_kernel puts 64 query rows on one warpgroup, so each K/V row
 // is read once per 64 rows (not per 8), and does both products on wgmma
 // with the key tiles' loads in flight behind them (see its comment).
-// Work splits into blocks by (slot, kv head, tile of query rows); each
-// block reads its slot's q_len, kv_len and block-table row itself. No
-// split-KV across blocks yet.
+// Each block reads its slot's q_len, kv_len and block-table row itself.
 //
-// Numerics: logits, softmax and accumulation in f32. rpa_kernel never
-// rounds the probabilities; rpa_tile_kernel rounds the unnormalised ones
+// Numerics: logits, softmax, accumulation and rpa_kernel's partials and
+// their merge in f32. rpa_kernel never rounds the probabilities; rpa_tile_kernel rounds the unnormalised ones
 // to bf16 as wgmma's A operand. The plain version (and the TPU kernels)
 // normalise first and round the probabilities to the dtype of the V rows
 // before the V product. Each bf16 output element is held to the bound
@@ -67,7 +67,8 @@
 // C interface (built by nvcc, loaded with ctypes; no PyTorch headers):
 // the *_launch functions take device pointers, sizes, element strides,
 // the f32 scale and the CUDA stream; they launch on that stream, allocate
-// nothing, and return cudaGetLastError(). hopper_wgmma_check runs the
+// nothing (rpa_kernel's workspace and tickets come from the caller), and
+// return cudaGetLastError(). hopper_wgmma_check runs the
 // tile core's first launch check.
 
 #include <cuda_bf16.h>
@@ -82,11 +83,11 @@
 
 namespace {
 
-constexpr int kUnroll = 4;  // key rows in flight per warp
-
 struct Params {
   int B, q_max, H, KV, groups, ps, max_pages;
   int pages;                      // pool pages (the TMA gather's map)
+  int rows, chunk;                // rpa_kernel: query rows a block, keys a
+                                  // chunk (the grid's split axis)
   long long q_sb, q_sq, q_sh;     // q strides (elements): slot, row, head
   long long kv_sp, kv_sr, kv_sh;  // pool strides: page, row, kv head
   long long o_sb, o_sq, o_sh;     // out strides
@@ -107,41 +108,13 @@ struct Ptrs {
   const int* ql;
   const int* kl;
   void* o;
+  float* ws;      // rpa_kernel's f32 partials, when it splits the keys
+  int* tickets;   // one a (slot, kv head, rows) tile, zero between launches
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// EPL consecutive elements at p (aligned to EPL * sizeof(T)) as f32.
-template <typename T, int EPL>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[EPL]) {
-  if constexpr (std::is_same<T, float>::value && EPL == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else if constexpr (std::is_same<T, float>::value && EPL == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x; out[1] = v.y;
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value && EPL == 4) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value && EPL == 2) {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = a.x; out[1] = a.y;
-  } else {
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) out[e] = to_f32(p[e]);
-  }
 }
 
 // One payload byte (the low 8 bits of b) as f32.
@@ -168,54 +141,102 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// EPL consecutive one-byte payload elements at p (aligned to EPL bytes),
-// dequantized with the row's scale s: payload × s in f32, rounded to T.
-template <typename T, typename P, int EPL>
-__device__ __forceinline__ void load_dequant(const P* p, float s,
-                                             float (&out)[EPL]) {
-  unsigned raw;
-  if constexpr (EPL == 4) {
-    raw = *reinterpret_cast<const uint32_t*>(p);
-  } else if constexpr (EPL == 2) {
-    raw = *reinterpret_cast<const uint16_t*>(p);
+// Byte i (0..3) of w, a one-byte payload, as f32 — payload_to_f32's
+// value. int8 without a conversion instruction (those run at a quarter of
+// the FMA rate): 2^23 + (b ^ 0x80) built by one byte permute, less 2^23 +
+// 128, exact; e4m3 through its hardware conversion. (An integer path for
+// e4m3 and an integer bf16 rounding measured slower on an H100, PERF.md.)
+template <typename P>
+__device__ __forceinline__ float payload_byte_to_f32(uint32_t w, int i) {
+  return payload_to_f32<P>((w >> (8 * i)) & 0xffu);
+}
+template <>
+__device__ __forceinline__ float payload_byte_to_f32<int8_t>(uint32_t w,
+                                                             int i) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
+                                     0x7540 | i)) - 8388736.f;
+}
+
+// 16 bytes of a row of P (16 / sizeof(P) elements) as f32: f32 and bf16
+// widened exactly; a one-byte payload dequantized with the row's scale s
+// as the reference does — payload × s in f32 (__fmul_rn, never
+// contracted), rounded to the model type T.
+template <typename T, typename P>
+__device__ __forceinline__ void unpack16(const uint4& raw, float s,
+                                         float (&out)[16 / sizeof(P)]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  if constexpr (std::is_same<P, float>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i] = __uint_as_float(w[i]);
+  } else if constexpr (std::is_same<P, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
   } else {
-    static_assert(EPL == 1, "one, two or four payload bytes per lane");
-    raw = *reinterpret_cast<const uint8_t*>(p);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      out[i] = round_to<T>(
+          __fmul_rn(payload_byte_to_f32<P>(w[i >> 2], i & 3), s));
   }
-#pragma unroll
-  for (int e = 0; e < EPL; ++e)
-    out[e] = round_to<T>(
-        __fmul_rn(payload_to_f32<P>((raw >> (8 * e)) & 0xffu), s));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
+// --------------------------------------------------- decode: rpa_kernel
 // One block: slot b, kv head kvh, query rows [r0, r0 + ROWS) of the
 // regrouped [q_max * groups] row axis (row = qpos * groups + gi, query
-// head = kvh * groups + gi). NW warps split the key rows. T is the model
-// type (q, out); P the pool's: P = T is K3, a one-byte P is K4, whose
-// rows are dequantized with kscale / vscale.
-template <typename T, typename P, int HD, int ROWS, int NW>
-__global__ void __launch_bounds__(NW * 32)
+// head = kvh * groups + gi), and one chunk [c0, c0 + chunk) of the key
+// axis (blockIdx.z; chunks are whole pages). T is the model type (q, out);
+// P the pool's: P = T is K3, a one-byte P is K4, whose rows are
+// dequantized with kscale / vscale.
+//
+// Inside the block, each lane loads 16 bytes of a K or V row, so a row
+// takes LPR = HD·sizeof(P)/16 lanes (16 for bf16 at hd 128, 8 for K4's
+// one-byte payloads) and a warp reads 32/LPR rows at once; each such lane
+// group is a worker with its own online softmax (base 2, the scale times
+// log2(e) folded into q) over every NWK-th key, U keys a step, the next
+// step's rows already in flight in registers while the current step
+// computes. The chunk's block-table entries are staged in shared memory
+// once, so a row's load is one global round trip. Workers merge by
+// shuffles within a warp and through shared memory across warps. With one
+// chunk the block writes out; with more, it writes its partial (m, l,
+// acc) in f32 to the workspace, and the last block of the (slot, kv head,
+// rows) tile to arrive — an atomic ticket, which it then resets for the
+// next launch — merges every chunk's partial by the lse rule and writes
+// out: a call stays one launch. A chunk wholly past the rows' limits
+// reads nothing and contributes m = −inf.
+constexpr int kDecWarps = 4;     // warps of one rpa_kernel block
+constexpr int kWinPages = 256;   // block-table entries staged at a time
+
+template <typename T, typename P, int HD, int ROWS>
+__global__ void __launch_bounds__(kDecWarps * 32)
 rpa_kernel(const T* __restrict__ q, const P* __restrict__ kpool,
            const P* __restrict__ vpool, const float* __restrict__ kscale,
            const float* __restrict__ vscale,
            const int* __restrict__ block_table,
            const int* __restrict__ q_lens, const int* __restrict__ kv_lens,
-           T* __restrict__ out, const Params p) {
+           T* __restrict__ out, float* __restrict__ ws,
+           int* __restrict__ tickets, const Params p) {
   constexpr bool kQuant = !std::is_same<T, P>::value;
-  constexpr int EPL = HD >= 32 ? HD / 32 : 1;  // elements per lane
-  __shared__ float sm_acc[NW][ROWS][HD];
-  __shared__ float sm_m[NW][ROWS];
-  __shared__ float sm_l[NW][ROWS];
+  constexpr int EPL = 16 / static_cast<int>(sizeof(P));  // elements a lane
+  constexpr int LPR = HD / EPL;           // lanes a K/V row
+  constexpr int RPW = 32 / LPR;           // rows a warp loads at once
+  constexpr int NWK = kDecWarps * RPW;    // workers of the block
+  constexpr int U = kQuant || ROWS >= 8 ? 2 : 4;   // keys a worker a step
+  constexpr int QV = 16 / static_cast<int>(sizeof(T));  // q elements / 16 B
+  static_assert(HD % EPL == 0 && LPR >= 1 && LPR <= 32 && 32 % LPR == 0,
+                "a K/V row must take a power-of-two share of a warp");
+  __shared__ float sm_acc[kDecWarps][ROWS][HD];
+  __shared__ float sm_m[kDecWarps][ROWS];
+  __shared__ float sm_l[kDecWarps][ROWS];
+  __shared__ int s_bt[kWinPages];
+  __shared__ int s_last;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const bool lane_on = lane * EPL < HD;  // HD = 16: lanes 16..31 idle
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int li = lane % LPR;                // the lane's 16 bytes of a row
+  const int wk = warp * RPW + lane / LPR;   // the lane's worker
   const int b = blockIdx.x / p.KV;
   const int kvh = blockIdx.x % p.KV;
   const int span = p.q_max * p.groups;
@@ -240,18 +261,32 @@ rpa_kernel(const T* __restrict__ q, const P* __restrict__ kpool,
     lim[r] = l;
     lmax = max(lmax, l);
   }
+  // this block's chunk of the keys, [c0, c1); row r's live keys in it end
+  // at end[r]
+  const int c0 = blockIdx.z * p.chunk;
+  const int c1 = min(c0 + p.chunk, lmax);
+  int end[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) end[r] = min(c1, lim[r]);
 
+  // q rows, times scale·log2(e), of the rows with a live key here
+  const float qscale = p.scale * hopper::kLog2e;
   float qr[ROWS][EPL];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int row = r0 + r;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) qr[r][e] = 0.f;
-    if (lim[r] > 0 && lane_on) {
-      const int qpos = row / p.groups;
-      const int h = kvh * p.groups + row % p.groups;
-      load_vec<T, EPL>(q + b * p.q_sb + qpos * p.q_sq + h * p.q_sh +
-                           lane * EPL, qr[r]);
+    if (c0 < end[r]) {
+      const T* qp = q + b * p.q_sb + (row / p.groups) * p.q_sq +
+                    (kvh * p.groups + row % p.groups) * p.q_sh + li * EPL;
+#pragma unroll
+      for (int c = 0; c < EPL / QV; ++c) {
+        float t[QV];
+        unpack16<T, T>(*reinterpret_cast<const uint4*>(qp + c * QV), 0.f, t);
+#pragma unroll
+        for (int e = 0; e < QV; ++e) qr[r][c * QV + e] = t[e] * qscale;
+      }
     }
   }
 
@@ -264,94 +299,199 @@ rpa_kernel(const T* __restrict__ q, const P* __restrict__ kpool,
     for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
   }
 
-  for (int j0 = warp * kUnroll; j0 < lmax; j0 += NW * kUnroll) {
-    float kf[kUnroll][EPL], vf[kUnroll][EPL];
+  // the K and V rows (16 bytes of each) and K4's scales of keys j0 +
+  // u·NWK + wk, u < U, of the staged window [w0, w1); zeros past w1,
+  // where nothing is read
+  auto fetch = [&](int j0, int w0, int w1, uint4 (&kr)[U], uint4 (&vr)[U],
+                   float (&ks)[U], float (&vs)[U]) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) kf[u][e] = vf[u][e] = 0.f;
-      if (j < lmax && lane_on) {
-        const long long page = bt[j / p.ps];
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * NWK + wk;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      ks[u] = vs[u] = 0.f;
+      if (j < w1) {
+        const long long page = s_bt[(j - w0) / p.ps];
         const long long off = page * p.kv_sp + (j % p.ps) * p.kv_sr +
-                              kvh * p.kv_sh + lane * EPL;
+                              kvh * p.kv_sh + li * EPL;
+        kr[u] = *reinterpret_cast<const uint4*>(kpool + off);
+        vr[u] = *reinterpret_cast<const uint4*>(vpool + off);
         if constexpr (kQuant) {
           // the row's one scale per pool, at [page, row, kv head]
           const long long soff = page * p.s_sp + (j % p.ps) * p.s_sr + kvh;
-          load_dequant<T, P, EPL>(kpool + off, kscale[soff], kf[u]);
-          load_dequant<T, P, EPL>(vpool + off, vscale[soff], vf[u]);
-        } else {
-          load_vec<T, EPL>(kpool + off, kf[u]);
-          load_vec<T, EPL>(vpool + off, vf[u]);
+          ks[u] = kscale[soff];
+          vs[u] = vscale[soff];
         }
       }
     }
+  };
+  // one step: keys j0 + u·NWK + wk into each row's online softmax; a key
+  // at or past a row's end is skipped, never multiplied in
+  auto consume = [&](int j0, const uint4 (&kr)[U], const uint4 (&vr)[U],
+                     const float (&ks)[U], const float (&vs)[U]) {
+    float kf[U][EPL], vf[U][EPL];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      unpack16<T, P>(kr[u], ks[u], kf[u]);
+      unpack16<T, P>(vr[u], vs[u], vf[u]);
+    }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      float s[kUnroll];
-      float m_new = m[r];
+      float s[U];
+      float mx = m[r];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < U; ++u) {
         float d = 0.f;
 #pragma unroll
         for (int e = 0; e < EPL; ++e) d = fmaf(qr[r][e], kf[u][e], d);
-        s[u] = warp_sum(d) * p.scale;
-        if (j0 + u < lim[r]) m_new = fmaxf(m_new, s[u]);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        s[u] = d;
+        if (j0 + u * NWK + wk < end[r]) mx = fmaxf(mx, d);
       }
-      if (j0 >= lim[r]) continue;  // no live column for this row here
-      const float corr = expf(m[r] - m_new);  // 0 while m[r] = -inf
+      if (mx == -INFINITY) continue;  // no live key for this row yet
+      const float corr = exp2f(m[r] - mx);  // 0 while m[r] = −inf
       l[r] *= corr;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) acc[r][e] *= corr;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (j0 + u >= lim[r]) break;  // skipped, never multiplied in
-        const float pu = expf(s[u] - m_new);
+      for (int u = 0; u < U; ++u) {
+        if (j0 + u * NWK + wk >= end[r]) continue;
+        const float pu = exp2f(s[u] - mx);
         l[r] += pu;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(pu, vf[u][e], acc[r][e]);
+        for (int e = 0; e < EPL; ++e)
+          acc[r][e] = fmaf(pu, vf[u][e], acc[r][e]);
       }
-      m[r] = m_new;
+      m[r] = mx;
+    }
+  };
+
+  for (int w0 = c0; w0 < c1; w0 += kWinPages * p.ps) {
+    const int w1 = min(c1, w0 + kWinPages * p.ps);
+    __syncthreads();   // the previous window's table entries are consumed
+    for (int i = tid; i < (w1 - w0 + p.ps - 1) / p.ps; i += kDecWarps * 32)
+      s_bt[i] = bt[w0 / p.ps + i];
+    __syncthreads();
+    uint4 kc[U], vc[U];
+    float ksc[U], vsc[U];
+    fetch(w0, w0, w1, kc, vc, ksc, vsc);
+    for (int j0 = w0; j0 < w1; j0 += NWK * U) {
+      uint4 kn[U], vn[U];
+      float ksn[U], vsn[U];
+      fetch(j0 + NWK * U, w0, w1, kn, vn, ksn, vsn);   // in flight
+      consume(j0, kc, vc, ksc, vsc);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        kc[u] = kn[u];
+        vc[u] = vn[u];
+        ksc[u] = ksn[u];
+        vsc[u] = vsn[u];
+      }
     }
   }
 
+  // merge the warp's workers (lane groups LPR apart), then the warps
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (lane_on) {
+  for (int o = LPR; o < 32; o <<= 1)
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][r][lane * EPL + e] = acc[r][e];
+    for (int r = 0; r < ROWS; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+      const float mx = fmaxf(m[r], mo);
+      const float safe = mx == -INFINITY ? 0.f : mx;
+      const float a = exp2f(m[r] - safe), c = exp2f(mo - safe);
+      l[r] = l[r] * a + lo * c;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        acc[r][e] = acc[r][e] * a +
+                    __shfl_xor_sync(0xffffffffu, acc[r][e], o) * c;
+      m[r] = mx;
     }
-    if (lane == 0) {
-      sm_m[warp][r] = m[r];
-      sm_l[warp][r] = l[r];
+  if (lane < LPR) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) sm_acc[warp][r][li * EPL + e] = acc[r][e];
+      if (lane == 0) {
+        sm_m[warp][r] = m[r];
+        sm_l[warp][r] = l[r];
+      }
     }
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < ROWS * HD; idx += NW * 32) {
+  const int splits = gridDim.z;
+  const int tile = blockIdx.x * gridDim.y + blockIdx.y;
+  // workspace: (m, l) of [tiles][splits][ROWS], then acc of [tiles]
+  // [splits][ROWS][HD], all f32
+  float* ws_ml = ws;
+  float* ws_acc = ws + 2LL * gridDim.x * gridDim.y * splits * ROWS;
+  for (int idx = tid; idx < ROWS * HD; idx += kDecWarps * 32) {
+    const int r = idx / HD;
+    const int d = idx % HD;
+    const int row = r0 + r;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
+    float den = 0.f, num = 0.f;
+    if (mx != -INFINITY) {  // else: no live column here
+#pragma unroll
+      for (int w = 0; w < kDecWarps; ++w) {
+        if (sm_m[w][r] == -INFINITY) continue;
+        const float c = exp2f(sm_m[w][r] - mx);
+        den = fmaf(sm_l[w][r], c, den);
+        num = fmaf(sm_acc[w][r][d], c, num);
+      }
+    }
+    if (splits == 1) {
+      if (row < span)   // no live column (q_len = 0) -> zeros
+        store(out + b * p.o_sb + (row / p.groups) * p.o_sq +
+                  (kvh * p.groups + row % p.groups) * p.o_sh + d,
+              mx == -INFINITY ? 0.f : num / den);
+    } else {
+      const long long at = ((long long)tile * splits + blockIdx.z) * ROWS + r;
+      ws_acc[at * HD + d] = num;
+      if (d == 0) {
+        ws_ml[2 * at] = mx;
+        ws_ml[2 * at + 1] = den;
+      }
+    }
+  }
+  if (splits == 1) return;
+  __threadfence();    // this block's partial, before its ticket
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(tickets + tile, 1) == splits - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();    // every other block's partial, after their tickets
+  for (int idx = tid; idx < ROWS * HD; idx += kDecWarps * 32) {
     const int r = idx / HD;
     const int d = idx % HD;
     const int row = r0 + r;
     if (row >= span) continue;
+    const long long base = (long long)tile * splits * ROWS + r;
     float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][r]);
+    for (int sp = 0; sp < splits; ++sp)
+      mx = fmaxf(mx, __ldcg(ws_ml + 2 * (base + sp * ROWS)));
     float o = 0.f;
-    if (mx != -INFINITY) {  // else: no live column (q_len = 0) -> zeros
+    if (mx != -INFINITY) {
       float den = 0.f, num = 0.f;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        if (sm_m[w][r] == -INFINITY) continue;
-        const float c = expf(sm_m[w][r] - mx);
-        den = fmaf(sm_l[w][r], c, den);
-        num = fmaf(sm_acc[w][r][d], c, num);
+      for (int sp = 0; sp < splits; ++sp) {
+        const long long at = base + sp * ROWS;
+        const float ms = __ldcg(ws_ml + 2 * at);
+        if (ms == -INFINITY) continue;     // a chunk with no live column
+        const float c = exp2f(ms - mx);
+        den = fmaf(__ldcg(ws_ml + 2 * at + 1), c, den);
+        num = fmaf(__ldcg(ws_acc + at * HD + d), c, num);
       }
       o = num / den;
     }
-    const int qpos = row / p.groups;
-    const int h = kvh * p.groups + row % p.groups;
-    store(out + b * p.o_sb + qpos * p.o_sq + h * p.o_sh + d, o);
+    store(out + b * p.o_sb + (row / p.groups) * p.o_sq +
+              (kvh * p.groups + row % p.groups) * p.o_sh + d,
+          o);
   }
+  if (tid == 0) tickets[tile] = 0;   // ready for the next launch
 }
 
 // ------------------------------------------------ prefill: the tile path
@@ -368,7 +508,7 @@ rpa_kernel(const T* __restrict__ q, const P* __restrict__ kpool,
 // (a row's page is bt[row / ps]). K4 (one-byte P) gathers payload rows
 // and their f32 scales by cp.async into a staging ring, and the threads
 // dequantize a staged tile into the bf16 K and V tiles exactly as
-// load_dequant does. No row at or past the tile's largest limit enters a
+// unpack16 does. No row at or past the tile's largest limit enters a
 // product with a nonzero weight: cp.async copies of such rows read
 // nothing and write zeros; a TMA box brings in the rest of the last live
 // page, so V rows past the limit are zeroed in shared memory before P·V,
@@ -705,40 +845,52 @@ wgmma_check_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }
 
 template <typename T, typename P, int HD, int ROWS>
-void launch_rows(const Params& p, const Ptrs& a, cudaStream_t stream) {
-  // 16 warps keep enough rows in flight for decode's few blocks; at 8
-  // query rows the merge buffer would pass 48 KB, so 8 warps there
-  constexpr int NW = ROWS >= 8 ? 8 : 16;
-  const dim3 grid(p.B * p.KV, (p.q_max * p.groups + ROWS - 1) / ROWS, 1);
-  rpa_kernel<T, P, HD, ROWS, NW><<<grid, NW * 32, 0, stream>>>(
+int launch_rows(const Params& p, const Ptrs& a, int splits,
+                cudaStream_t stream) {
+  const int tiles = (p.q_max * p.groups + ROWS - 1) / ROWS;
+  if (tiles > 65535 || splits > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (splits > 1 && (a.ws == nullptr || a.tickets == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(p.B * p.KV, tiles, splits);
+  rpa_kernel<T, P, HD, ROWS><<<grid, kDecWarps * 32, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const P*>(a.k),
       static_cast<const P*>(a.v), a.ks, a.vs, a.bt, a.ql, a.kl,
-      static_cast<T*>(a.o), p);
+      static_cast<T*>(a.o), a.ws, a.tickets, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
+// Query rows a block: 1, 2, 4 or 8 (K4 at most 4: a lane holds 16 of a
+// row's elements there).
 template <typename T, typename P, int HD>
-void launch_hd(const Params& p, const Ptrs& a, cudaStream_t stream) {
-  const int span = p.q_max * p.groups;
-  if (span >= 8)
-    launch_rows<T, P, HD, 8>(p, a, stream);
-  else if (span > 2)
-    launch_rows<T, P, HD, 4>(p, a, stream);
-  else if (span == 2)
-    launch_rows<T, P, HD, 2>(p, a, stream);
-  else
-    launch_rows<T, P, HD, 1>(p, a, stream);
+int launch_hd(const Params& p, const Ptrs& a, int splits,
+              cudaStream_t stream) {
+  switch (p.rows) {
+    case 1: return launch_rows<T, P, HD, 1>(p, a, splits, stream);
+    case 2: return launch_rows<T, P, HD, 2>(p, a, splits, stream);
+    case 4: return launch_rows<T, P, HD, 4>(p, a, splits, stream);
+    case 8:
+      if constexpr (std::is_same<T, P>::value)
+        return launch_rows<T, P, HD, 8>(p, a, splits, stream);
+      break;
+    default: break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, typename P>
-int launch_types(const Params& p, int hd, const Ptrs& a,
+int launch_types(const Params& p, int hd, const Ptrs& a, int splits,
                  cudaStream_t stream) {
+  if (p.chunk <= 0 || p.chunk % p.ps || splits <= 0 ||
+      static_cast<long long>(splits) * p.chunk <
+          static_cast<long long>(p.max_pages) * p.ps)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: launch_hd<T, P, 16>(p, a, stream); break;
-    case 64: launch_hd<T, P, 64>(p, a, stream); break;
-    case 128: launch_hd<T, P, 128>(p, a, stream); break;
+    case 16: return launch_hd<T, P, 16>(p, a, splits, stream);
+    case 64: return launch_hd<T, P, 64>(p, a, splits, stream);
+    case 128: return launch_hd<T, P, 128>(p, a, splits, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Fills p; returns a cudaError_t code (0 = the sizes can be launched).
@@ -753,6 +905,7 @@ int make_params(Params& p, int B, int q_max, int H, int KV, int page_size,
     return static_cast<int>(cudaErrorInvalidValue);
   p.B = B; p.q_max = q_max; p.H = H; p.KV = KV; p.groups = H / KV;
   p.pages = 0;
+  p.rows = 0; p.chunk = 0;
   p.ps = page_size; p.max_pages = max_pages;
   p.q_sb = q_sb; p.q_sq = q_sq; p.q_sh = q_sh;
   p.kv_sp = kv_sp; p.kv_sr = kv_sr; p.kv_sh = kv_sh;
@@ -768,14 +921,21 @@ int make_params(Params& p, int B, int q_max, int H, int KV, int page_size,
 
 extern "C" {
 
-// K3. dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
-// Strides are in elements; the last dimension of q, the pools and out is
-// contiguous. Returns a cudaError_t code (0 = launched).
+// K3 on rpa_kernel. dtype: 0 = float32, 1 = bfloat16 (q, pools and out
+// share it). Strides are in elements; the last dimension of q, the pools
+// and out is contiguous. rows (query rows a block: 1, 2, 4, 8), splits
+// and chunk (the key axis in `splits` chunks of `chunk` rows, a multiple
+// of page_size, covering max_pages·page_size) are the caller's plan;
+// with splits > 1, workspace holds tiles·splits·rows·(hd + 2) f32 and
+// tickets `tiles` int32 zeros (tiles = B·KV·ceil(q_max·groups / rows)),
+// which every launch leaves zero. Returns a cudaError_t code (0 =
+// launched).
 int rpa_launch(const void* q, const void* k_pool, const void* v_pool,
                const void* block_table, const void* q_lens,
-               const void* kv_lens, void* out, int dtype, int B, int q_max,
-               int H, int KV, int hd, int page_size, int max_pages,
-               long long q_sb, long long q_sq, long long q_sh,
+               const void* kv_lens, void* out, void* workspace,
+               void* tickets, int dtype, int B, int q_max, int H, int KV,
+               int hd, int page_size, int max_pages, int rows, int splits,
+               int chunk, long long q_sb, long long q_sq, long long q_sh,
                long long kv_sp, long long kv_sr, long long kv_sh,
                long long o_sb, long long o_sq, long long o_sh,
                long long bt_sb, float scale, void* stream) {
@@ -784,49 +944,58 @@ int rpa_launch(const void* q, const void* k_pool, const void* v_pool,
                               q_sq, q_sh, kv_sp, kv_sr, kv_sh, o_sb, o_sq,
                               o_sh, 0, 0, bt_sb, scale);
   if (bad) return bad;
+  p.rows = rows;
+  p.chunk = chunk;
   const Ptrs a{q, k_pool, v_pool, nullptr, nullptr,
                static_cast<const int*>(block_table),
                static_cast<const int*>(q_lens),
-               static_cast<const int*>(kv_lens), out};
+               static_cast<const int*>(kv_lens), out,
+               static_cast<float*>(workspace), static_cast<int*>(tickets)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_types<float, float>(p, hd, a, s);
+  if (dtype == 0) return launch_types<float, float>(p, hd, a, splits, s);
   if (dtype == 1)
-    return launch_types<__nv_bfloat16, __nv_bfloat16>(p, hd, a, s);
+    return launch_types<__nv_bfloat16, __nv_bfloat16>(p, hd, a, splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K4. dtype: 0 = float32, 1 = bfloat16 (q and out); payload: 0 = int8,
-// 1 = fp8 e4m3 (both pools). k_scale / v_scale are f32 [pages, page_size,
-// KV] with strides s_sp, s_sr and 1. Other arguments as rpa_launch.
+// K4 on rpa_kernel. dtype: 0 = float32, 1 = bfloat16 (q and out);
+// payload: 0 = int8, 1 = fp8 e4m3 (both pools). k_scale / v_scale are f32
+// [pages, page_size, KV] with strides s_sp, s_sr and 1. Other arguments
+// as rpa_launch.
 int rpa_quant_launch(const void* q, const void* k_pool, const void* v_pool,
                      const void* k_scale, const void* v_scale,
                      const void* block_table, const void* q_lens,
-                     const void* kv_lens, void* out, int dtype, int payload,
-                     int B, int q_max, int H, int KV, int hd, int page_size,
-                     int max_pages, long long q_sb, long long q_sq,
-                     long long q_sh, long long kv_sp, long long kv_sr,
-                     long long kv_sh, long long o_sb, long long o_sq,
-                     long long o_sh, long long s_sp, long long s_sr,
-                     long long bt_sb, float scale, void* stream) {
+                     const void* kv_lens, void* out, void* workspace,
+                     void* tickets, int dtype, int payload, int B, int q_max,
+                     int H, int KV, int hd, int page_size, int max_pages,
+                     int rows, int splits, int chunk, long long q_sb,
+                     long long q_sq, long long q_sh, long long kv_sp,
+                     long long kv_sr, long long kv_sh, long long o_sb,
+                     long long o_sq, long long o_sh, long long s_sp,
+                     long long s_sr, long long bt_sb, float scale,
+                     void* stream) {
   Params p;
   const int bad = make_params(p, B, q_max, H, KV, page_size, max_pages, q_sb,
                               q_sq, q_sh, kv_sp, kv_sr, kv_sh, o_sb, o_sq,
                               o_sh, s_sp, s_sr, bt_sb, scale);
   if (bad) return bad;
+  p.rows = rows;
+  p.chunk = chunk;
   const Ptrs a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(block_table),
                static_cast<const int*>(q_lens),
-               static_cast<const int*>(kv_lens), out};
+               static_cast<const int*>(kv_lens), out,
+               static_cast<float*>(workspace), static_cast<int*>(tickets)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && payload == 0)
-    return launch_types<float, int8_t>(p, hd, a, s);
+    return launch_types<float, int8_t>(p, hd, a, splits, s);
   if (dtype == 0 && payload == 1)
-    return launch_types<float, __nv_fp8_e4m3>(p, hd, a, s);
+    return launch_types<float, __nv_fp8_e4m3>(p, hd, a, splits, s);
   if (dtype == 1 && payload == 0)
-    return launch_types<__nv_bfloat16, int8_t>(p, hd, a, s);
+    return launch_types<__nv_bfloat16, int8_t>(p, hd, a, splits, s);
   if (dtype == 1 && payload == 1)
-    return launch_types<__nv_bfloat16, __nv_fp8_e4m3>(p, hd, a, s);
+    return launch_types<__nv_bfloat16, __nv_fp8_e4m3>(p, hd, a, splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -855,7 +1024,7 @@ int rpa_tile_launch(const void* q, const void* k_pool, const void* v_pool,
   const Ptrs a{q, k_pool, v_pool, nullptr, nullptr,
                static_cast<const int*>(block_table),
                static_cast<const int*>(q_lens),
-               static_cast<const int*>(kv_lens), out};
+               static_cast<const int*>(kv_lens), out, nullptr, nullptr};
   return launch_tile_hd<__nv_bfloat16>(p, hd, a,
                                        static_cast<cudaStream_t>(stream));
 }
@@ -883,7 +1052,7 @@ int rpa_tile_quant_launch(const void* q, const void* k_pool,
                static_cast<const float*>(v_scale),
                static_cast<const int*>(block_table),
                static_cast<const int*>(q_lens),
-               static_cast<const int*>(kv_lens), out};
+               static_cast<const int*>(kv_lens), out, nullptr, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (payload == 0) return launch_tile_hd<int8_t>(p, hd, a, s);
   if (payload == 1) return launch_tile_hd<__nv_fp8_e4m3>(p, hd, a, s);

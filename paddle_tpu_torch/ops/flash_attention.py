@@ -9,11 +9,15 @@ tensors' device and nothing else:
   ``flash_attention_reference`` (what kernel K1 computes) and
   ``flash_attention_bwd_reference`` (what K2 computes);
 * CUDA tensors launch the hand-written Hopper kernels of
-  ``csrc/flash_attention.cu`` (``flash_fwd``: in bf16 on the Hopper tile
-  core of ``csrc/hopper_attention.cuh``, wgmma products over K/V tiles
-  that TMA streams into a two-stage ring, in f32 on CUDA cores;
-  ``flash_bwd_dq`` and ``flash_bwd_dkv``), built with nvcc at first use
-  by ``_build.py``, or raise. Nothing sends a CUDA tensor elsewhere: the JAX package's
+  ``csrc/flash_attention.cu``, built with nvcc at first use by
+  ``_build.py``, or raise. bf16 runs on the Hopper tile core of
+  ``csrc/hopper_attention.cuh``: ``flash_fwd`` (wgmma products over K/V
+  tiles that TMA streams into a two-stage ring) and ``flash_bwd`` (one
+  kernel doing the five products of each (key tile, query tile) pair on
+  wgmma, dq summed in an f32 accumulator by TMA reduce-adds, with a
+  preparation and a conversion kernel in the same launch call); f32 runs
+  on CUDA cores (``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``).
+  Nothing sends a CUDA tensor elsewhere: the JAX package's
   ``L % 128 or S % 128`` gate and its D padding have no counterpart — the
   kernels take any L and S and D in ``SUPPORTED_HEAD_DIMS`` natively.
 
@@ -39,7 +43,10 @@ average thousands of keys and are of order 0.03.
   tensor-core operands (≤ 2^-9 relative per term, averaging out over a
   row's terms) and each side rounds its output to bf16: two roundings of
   nearly equal values differ by at most one ulp, ≤ 2^-7 of the row's max
-  — ``BF16_TOL`` = 2^-6, a 2× margin over that one ulp;
+  — ``BF16_TOL`` = 2^-6, a 2× margin over that one ulp. The bf16
+  backward sums dq in f32 across blocks, in an order that changes from
+  run to run: dq's bits do, its bound does not (summation order moves it
+  by ≈ 1e-6 relative);
 * lse is f32 on both sides, held to ``LSE_TOL`` (absolute).
 """
 from __future__ import annotations
@@ -175,7 +182,8 @@ def _check(name, t, dtype, device):
 
 
 def _check_tma(name, t):
-    """The bf16 forward (K1) reads q, k and v through TMA tensor maps: on
+    """The bf16 kernels read q, k, v (and the backward dout) through TMA
+    tensor maps: on
     top of ``_check``'s 16-byte multiples and alignment, the map needs
     each dim of extent > 1 to step by a positive stride below 2^40
     bytes."""
@@ -253,18 +261,23 @@ def _flash_fwd(q, k, v, causal, scale):
 
 
 def _bwd_delta(out, dout):
-    """delta = rowsum(dout·out) in f32 as [B, H, L], computed outside the
-    kernels as the JAX package computes it with jnp outside its two Pallas
-    calls."""
+    """delta = rowsum(dout·out) in f32 as [B, H, L] for the f32 kernels,
+    computed outside them as the JAX package computes it with jnp outside
+    its two Pallas calls (the bf16 launch computes it in its preparation
+    kernel)."""
     return (dout.to(torch.float32) * out.to(torch.float32)).sum(-1) \
         .transpose(1, 2).contiguous()
 
 
 def _validate_bwd(q, k, v, dout, lse, delta):
+    """What both backwards take; ``delta`` None for the bf16 one, which
+    computes it."""
     _validate(q, k, v)
     _check("dout", dout, q.dtype, q.device)
     B, L, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
         if t.shape != (B, H, L) or t.dtype != torch.float32 \
                 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"flash attention backward: {name} must be f32 "
@@ -274,7 +287,7 @@ def _validate_bwd(q, k, v, dout, lse, delta):
 
 
 def _bwd_dq(q, k, v, dout, lse, delta, causal, scale):
-    """Launch flash_bwd_dq: dq like q."""
+    """Launch flash_bwd_dq (f32): dq like q."""
     _validate_bwd(q, k, v, dout, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _run("flash_bwd_dq", causal, scale, q=q, k=k, v=v, dout=dout, lse=lse,
@@ -283,7 +296,7 @@ def _bwd_dq(q, k, v, dout, lse, delta, causal, scale):
 
 
 def _bwd_dkv(q, k, v, dout, lse, delta, causal, scale):
-    """Launch flash_bwd_dkv: (dk like k, dv like v)."""
+    """Launch flash_bwd_dkv (f32): (dk like k, dv like v)."""
     _validate_bwd(q, k, v, dout, lse, delta)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -292,9 +305,42 @@ def _bwd_dkv(q, k, v, dout, lse, delta, causal, scale):
     return dk, dv
 
 
+def _bwd_bf16(q, k, v, out, lse, dout, causal, scale):
+    """Launch flash_bwd (bf16): (dq like q, dk like k, dv like v). Its f32
+    scratch comes from here: lse·log2(e) and delta [B, H, Lp] (Lp = L
+    rounded up to a whole 64-row tile) and the dq accumulator [B, L, H,
+    D]; the launch's preparation kernel fills them, so none is zeroed
+    here."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_bwd takes bf16, not {q.dtype} (f32 runs "
+                         "flash_bwd_dq and flash_bwd_dkv)")
+    _validate_bwd(q, k, v, dout, lse, None)
+    _check("out", out, q.dtype, q.device)
+    if out.shape != q.shape:
+        raise ValueError("flash attention backward: out must be like q")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        _check_tma(name, t)
+    B, L, H, D = q.shape
+    Lp = -(-L // 64) * 64
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse2 = torch.empty((B, H, Lp), **f32)
+    delta = torch.empty((B, H, Lp), **f32)
+    dq_acc = torch.empty((B, L, H, D), **f32)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _run("flash_bwd", causal, scale, q=q, k=k, v=v, out=out, dout=dout,
+         lse=lse, lse2=lse2, delta=delta, dq_acc=dq_acc, dq=dq, dk=dk,
+         dv=dv)
+    return dq, dk, dv
+
+
 def _flash_bwd(q, k, v, out, lse, dout, causal, scale):
-    """delta, then flash_bwd_dq and flash_bwd_dkv: (dq, dk, dv)."""
+    """(dq, dk, dv): flash_bwd in bf16; in f32 delta, then flash_bwd_dq
+    and flash_bwd_dkv."""
     dout = dout.contiguous()
+    if q.dtype == torch.bfloat16:
+        return _bwd_bf16(q, k, v, out, lse, dout, causal, scale)
     delta = _bwd_delta(out, dout)
     dq = _bwd_dq(q, k, v, dout, lse, delta, causal, scale)
     dk, dv = _bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
@@ -313,8 +359,8 @@ def flash_forward(q, k, v, causal=False, sm_scale=None):
 
 
 def flash_backward(q, k, v, out, lse, dout, causal=False, sm_scale=None):
-    """(dq, dk, dv) of K2: the plain version on CPU tensors, the two
-    kernels on CUDA tensors."""
+    """(dq, dk, dv) of K2: the plain version on CPU tensors, the kernels
+    on CUDA tensors."""
     scale = _scale(q.shape[-1], sm_scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, dout, causal,

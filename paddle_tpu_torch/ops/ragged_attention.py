@@ -20,7 +20,13 @@ Dispatch follows the tensors' device and nothing else:
   (``rpa_tile_launch``, ``rpa_tile_quant_launch``: wgmma products, an
   asynchronous ring of key tiles gathered through the block table);
   decode rows, head dim 16 and f32 models take ``rpa_kernel`` on CUDA
-  cores (``rpa_launch`` for K3, ``rpa_quant_launch`` for K4). On an H100
+  cores (``rpa_launch`` for K3, ``rpa_quant_launch`` for K4), which
+  splits each slot's keys into page-aligned chunks over its grid when the
+  (slot, kv head, query rows) tiles alone would not fill the card several
+  times over, and merges the chunks in the same launch; ``_split_plan``
+  picks the chunk from the shapes and the card's SM count, and the
+  chunks' f32 partials and the merge's tickets live in scratch cached per
+  device and stream (``_scratch``), never allocated per call. On an H100
   the tile kernel was at least as fast as ``rpa_kernel`` from 2 rows of
   q_len·groups on, at kv_len 128 and 1024 (``chip_smoke.py`` phase 5,
   ``PERF.md``), so every call with more than one query row takes it.
@@ -79,6 +85,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -111,6 +118,67 @@ SUPPORTED_HEAD_DIMS = (16, 64, 128)
 TILE_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PAYLOAD_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
+# rpa_kernel's split of the keys (``_split_plan``): enough blocks for this
+# many per SM, chunks of at least this many rows (whole pages), at most
+# this many chunks. chip_smoke.py's decode sweep times these against
+# other values (PLAN_ALTERNATIVES) on the card; PERF.md has the numbers.
+DECODE_WAVES = 4
+MIN_CHUNK_ROWS = 128
+MAX_SPLITS = 64
+# (device, stream) → (f32 workspace, int32 tickets) of rpa_kernel's split
+_SCRATCH: dict = {}
+
+
+def _rows_per_block(span: int, quant: bool) -> int:
+    """Query rows (of the q_max·groups axis) one ``rpa_kernel`` block
+    holds: 1, 2, 4 or 8, and at most 4 over one-byte pages, where a lane
+    holds 16 of a row's elements."""
+    if span >= 8:
+        return 4 if quant else 8
+    return 4 if span > 2 else span
+
+
+def _split_plan(tiles: int, kv_max: int, page_size: int, n_sm: int):
+    """(splits, chunk) of ``rpa_kernel``'s key axis [0, kv_max), kv_max a
+    multiple of page_size (the block table's reach): ``splits`` chunks of
+    ``chunk`` rows, a whole number of pages, the last one possibly
+    shorter, none empty. A pure function of the shapes: 1 chunk when the
+    ``tiles`` blocks (slot, kv head, query rows) already number
+    DECODE_WAVES per SM; else enough chunks for that many blocks, each of
+    at least MIN_CHUNK_ROWS rows (rounded up to pages), at most
+    MAX_SPLITS."""
+    pages = -(-kv_max // page_size)
+    target = DECODE_WAVES * n_sm
+    if tiles >= target or pages <= 1:
+        return 1, pages * page_size
+    min_pages = -(-MIN_CHUNK_ROWS // page_size)
+    want = min(-(-target // tiles), max(1, pages // min_pages), MAX_SPLITS)
+    chunk_pages = -(-pages // want)
+    return -(-pages // chunk_pages), chunk_pages * page_size
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scratch(device, floats: int, tickets: int):
+    """rpa_kernel's split scratch on ``device`` for the current stream: an
+    f32 workspace of at least ``floats`` and at least ``tickets`` int32
+    tickets, zero between launches (each launch resets those it takes).
+    Cached and grown on demand, so a call allocates nothing once the
+    largest shape has run; a stream of its own, so that launches on two
+    streams never share tickets."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    ws, tk = _SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if tk is None or tk.numel() < tickets:
+        tk = torch.zeros(max(tickets, 1), dtype=torch.int32, device=device)
+    _SCRATCH[key] = (ws, tk)
+    return ws, tk
 
 
 def _tile_path(q_max: int, hd: int, dtype) -> bool:
@@ -357,32 +425,36 @@ def _launch(q, k_pool, v_pool, block_table, q_lens, kv_lens, page_size,
     from . import _build
     lib = _build.load("ragged_paged_attention")
     out = torch.empty_like(q)
-    common = (B, q_max, H, KV, hd, ps, block_table.shape[1],
-              *q.stride()[:3], *k_pool.stride()[:3], *out.stride()[:3])
+    max_pages = block_table.shape[1]
+    sizes = (B, q_max, H, KV, hd, ps, max_pages)
+    strides = (*q.stride()[:3], *k_pool.stride()[:3], *out.stride()[:3])
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
+    codes = (_DTYPE_CODE[q.dtype],) + \
+        ((_PAYLOAD_CODE[k_pool.dtype],) if quant else ())
+    if tile:
+        # the tile path's TMA maps span the pool: its page count
+        sizes += () if quant else (k_pool.shape[0],)
+        scratch = ()
+    else:
+        rows = _rows_per_block(q_max * (H // KV), quant)
+        tiles = B * KV * -(-q_max * (H // KV) // rows)
+        splits, chunk = _split_plan(tiles, max_pages * ps, ps,
+                                    _sm_count(q.device.index))
+        ws, tk = _scratch(q.device, tiles * splits * rows * (hd + 2), tiles)
+        scratch = (ws.data_ptr(), tk.data_ptr())
+        sizes += (rows, splits, chunk)
     name = "ragged_paged_attention" + ("_quant" if quant else "") \
         + ("_tile" if tile else "")
     entry = ("rpa_tile" if tile else "rpa") \
         + ("_quant_launch" if quant else "_launch")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if quant:
-            err = getattr(lib, entry)(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(),
-                block_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
-                out.data_ptr(), _DTYPE_CODE[q.dtype],
-                _PAYLOAD_CODE[k_pool.dtype], *common,
-                *k_scale.stride()[:2], block_table.stride(0),
-                ctypes.c_float(f32_scale(hd)), stream)
-        else:
-            # the tile path's TMA maps span the pool: its page count
-            sizes = common[:7] + ((k_pool.shape[0],) if tile else ()) \
-                + common[7:]
-            err = getattr(lib, entry)(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                block_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
-                out.data_ptr(), _DTYPE_CODE[q.dtype], *sizes,
-                block_table.stride(0), ctypes.c_float(f32_scale(hd)), stream)
+        err = getattr(lib, entry)(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+            block_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
+            out.data_ptr(), *scratch, *codes, *sizes, *strides,
+            *(k_scale.stride()[:2] if quant else ()), block_table.stride(0),
+            ctypes.c_float(f32_scale(hd)), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"cudaError {err} ({_build.error_string(err)})")

@@ -77,3 +77,80 @@ def test_tile_kernel_faults_land_in_the_tile_kernel(tools):
     sites = mods["flash_fault_check"].FAULTS["fwd_tile"].sites
     assert any("kTile" in old for old, _, _ in sites)   # the Hopper core's
     assert fc.CATCH_FACTOR >= 10
+
+
+def _site_offsets(src, fault):
+    """Where each site of ``fault`` lands in ``src``."""
+    out = []
+    for old, _, which in fault.sites:
+        at = -1
+        for _ in range(which + 1):
+            at = src.index(old, at + 1)
+        out.append(at)
+    return out
+
+
+def test_backward_and_split_faults_land_in_their_kernels(tools):
+    """The bf16 backward's faults (``bwd_dq_pair``, ``bwd_last_q``) are
+    planted inside ``flash_bwd_kernel`` and held to the bf16 outputs they
+    name (``bwd_last_q`` to each of dq, dk and dv); the f32 split's faults
+    to f32. The decode split's faults (``merge_last``, ``chunk_gap``) and
+    the re-anchored ``row0_scale`` and ``last_page`` are planted inside
+    ``rpa_kernel`` and are held to cases where it splits the keys."""
+    mods, fc = tools
+    flash = mods["flash_fault_check"].FAULTS
+    src = (CSRC / SOURCES["flash_fault_check"]).read_text()
+    start = src.index("flash_bwd_kernel(const __grid_constant__")
+    end = src.index("flash_bwd_prep_kernel(", start)
+    for name in ("bwd_dq_pair", "bwd_last_q"):
+        fault = flash[name]
+        assert fault.must_fail == ("bfloat16",), name
+        assert all(start < at < end for at in _site_offsets(src, fault)), name
+    assert flash["bwd_last_q"].every_case
+    assert set(flash["bwd_last_q"].cases) == {"dq", "dk", "dv"}
+    for name in ("dq_tile", "dkv_tile"):
+        assert flash[name].must_fail == ("float32",), name
+    rpa = mods["rpa_quant_fault_check"].FAULTS
+    src = (CSRC / SOURCES["rpa_quant_fault_check"]).read_text()
+    start = src.index("rpa_kernel(const T* __restrict__ q")
+    end = src.index("rpa_tile_kernel(const __nv_bfloat16*", start)
+    for name in ("merge_last", "chunk_gap", "row0_scale", "last_page"):
+        fault = fc._as_fault(rpa[name])
+        assert all(start < at < end for at in _site_offsets(src, fault)), name
+    for name in ("merge_last", "chunk_gap"):
+        assert rpa[name].cases == ("decode",), name
+
+
+def test_every_case_needs_each_named_case(tools):
+    """A fault counts as caught in a group when some case it names fails
+    by CATCH_FACTOR; with ``every_case``, only when each case it names
+    does (``fault_check.group_caught``)."""
+    _, fc = tools
+    big, small = 2 * fc.CATCH_FACTOR, 0.5
+    cases = {"dq": [1.0, big, ""], "dk": [1.0, small, ""],
+             "dv": [1.0, float("nan"), ""]}
+    any_case = fc.Fault(sites=(), cases=("dq", "dk"))
+    each = fc.Fault(sites=(), cases=("dq", "dk"), every_case=True)
+    assert fc.group_caught(any_case, cases)
+    assert not fc.group_caught(each, cases)
+    assert fc.group_caught(fc.Fault(sites=(), cases=("dq", "dv"),
+                                    every_case=True), cases)
+    assert not fc.group_caught(fc.Fault(sites=(), cases=("dk",)), cases)
+    assert fc.group_caught(fc.Fault(sites=()), cases)
+
+
+def test_variant_tool_plants_on_the_current_source(tools):
+    """``tools/flash_bwd_variants.py``'s timing variants each plant in the
+    current ``flash_attention.cu`` (a stale anchor would time the base
+    kernel under a variant's name)."""
+    _, fc = tools
+    sys.path.insert(0, str(TOOLS))
+    try:
+        var = importlib.import_module("flash_bwd_variants")
+    finally:
+        sys.path.remove(str(TOOLS))
+    text = (CSRC / "flash_attention.cu").read_text()
+    assert var.VARIANTS["base"] is None and len(var.VARIANTS) > 1
+    for name, variant in var.VARIANTS.items():
+        if variant is not None:
+            assert fc.plant(text, variant) != text, name

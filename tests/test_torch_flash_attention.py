@@ -170,18 +170,22 @@ def test_cuda_only_shapes_raise_before_launch():
 
 
 def test_kernel_source_and_bindings_agree():
-    """The three kernels build from one plain-C source (no PyTorch
-    headers), and each entry point's ctypes signature has as many
-    arguments as its C declaration."""
+    """The kernels build from one plain-C source (no PyTorch headers), K2's
+    bf16 dQ = dS·K reads K MN-major on the tile core, and each entry point
+    (the bf16 backward's ``flash_bwd_launch`` and its launch check among
+    them) has a ctypes signature with as many arguments as its C
+    declaration."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     assert "torch/" not in src and "extension.h" not in src
-    assert "mma.sync" in src
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        decl = re.search(r"int %s_launch\(([^)]*)\)" % name, src)
+    assert "wgmma_ss_n64_mnb" in src
+    sigs = _build.SIGNATURES["flash_attention"]
+    assert set(sigs) == {"flash_fwd_launch", "flash_bwd_launch",
+                         "flash_bwd_dq_launch", "flash_bwd_dkv_launch",
+                         "flash_bwd_wgmma_check"}
+    for name, (argtypes, _) in sigs.items():
+        decl = re.search(r"int %s\(([^)]*)\)" % name, src)
         assert decl, name
-        n_c = len(decl.group(1).split(","))
-        argtypes, _ = _build.SIGNATURES["flash_attention"][name + "_launch"]
-        assert len(argtypes) == n_c, name
+        assert len(argtypes) == len(decl.group(1).split(",")), name
 
 
 @pytest.mark.parametrize("bad", ["expanded_heads", "expanded_batch"])
@@ -203,10 +207,38 @@ def test_tma_maps_reject_strides_they_cannot_take(bad):
         tfa._check_tma(name, t)              # any positive strides pass
 
 
+@pytest.mark.parametrize("bad", ["dout_expanded", "out_shape", "lse_shape",
+                                 "f32_entry"])
+def test_bf16_backward_rejects_what_it_cannot_take(bad):
+    """The bf16 backward (``flash_bwd``) reads q, k, v and dout through TMA
+    maps and out and lse as given: a dout stepped by stride 0, an out or
+    an lse of the wrong shape raise before anything builds or launches
+    (CPU tensors exercise the checks); f32 never reaches it."""
+    B, L, H, D = 2, 8, 4, 64
+    x = torch.zeros(B, L, H, D, dtype=torch.bfloat16)
+    out, dout = x, x
+    lse = torch.zeros(B, H, L)
+    if bad == "dout_expanded":
+        dout = torch.zeros(B, L, 1, D, dtype=torch.bfloat16).expand(B, L, H, D)
+    elif bad == "out_shape":
+        out = x[:, :4]
+    elif bad == "lse_shape":
+        lse = torch.zeros(B, L, H)
+    if bad == "f32_entry":
+        f = x.float()
+        with pytest.raises(ValueError, match="dtype|kernel|bf16"):
+            tfa._bwd_bf16(f, f, f, f, lse, f, True, 0.125)
+        return
+    with pytest.raises(ValueError):
+        tfa._bwd_bf16(x, x, x, out, lse, dout, True, 0.125)
+
+
 def test_forward_sits_on_the_hopper_tile_core():
-    """K1's bf16 instances are the Hopper tile core's (wgmma products,
-    TMA maps from cuTensorMapEncodeTiled through the runtime, no -lcuda),
-    f32 keeps the CUDA-core kernel, and K2 keeps its mma.sync helpers."""
+    """K1's and K2's bf16 instances are the Hopper tile core's (wgmma
+    products, TMA maps from cuTensorMapEncodeTiled through the runtime, no
+    -lcuda): K2 is one kernel with an f32 dq accumulator summed by TMA
+    reduce-adds, and its mma.sync split survives only in f32 (the CUDA-core
+    helpers, as the f32 forward's)."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     core = (_build.CSRC / "hopper_attention.cuh").read_text()
     assert '#include "hopper_attention.cuh"' in src
@@ -215,6 +247,11 @@ def test_forward_sits_on_the_hopper_tile_core():
     assert "cudaGetDriverEntryPoint" in core and "-lcuda" not in \
         " ".join(_build.NVCC_FLAGS)
     assert "cp.async.bulk.tensor.4d" in core
-    assert "mma_abt" in src and "mma_pv" in src     # K2's products
+    assert "flash_bwd_kernel<D><<<" in src           # K2's bf16 kernel
+    assert "tma_reduce_add_4d(&tdq" in src
+    assert "cp.reduce.async.bulk.tensor.4d" in core
+    assert "cp.async.bulk.shared::cluster" in core   # its lse/delta copies
+    assert "bwd_dq<float, 64>" in src and "bwd_dq<bf16" not in src
+    assert "bwd_dkv<float, 64>" in src and "bwd_dkv<bf16" not in src
     argtypes, _ = _build.SIGNATURES["flash_attention"]["flash_fwd_launch"]
     assert len(argtypes) == 15                       # signature unchanged

@@ -326,12 +326,14 @@ def test_kernel_source_builds_with_nvcc_and_plain_c():
     tree = ast.parse(pathlib.Path(_build.__file__).read_text())
     assert "load" in {n.name for n in tree.body
                       if isinstance(n, ast.FunctionDef)}
+    # rpa_kernel's launches also take the split plan (rows, splits, chunk)
+    # and its scratch (workspace, tickets): 5 more arguments each
     argtypes, restype = _build.SIGNATURES["ragged_paged_attention"][
         "rpa_launch"]
-    assert len(argtypes) == 27
+    assert len(argtypes) == 32
     argtypes, restype = _build.SIGNATURES["ragged_paged_attention"][
         "rpa_quant_launch"]
-    assert len(argtypes) == 32
+    assert len(argtypes) == 37
     gitignore = (pathlib.Path(__file__).parents[1] / ".gitignore") \
         .read_text().split()
     assert "build/" in gitignore
@@ -522,3 +524,107 @@ def test_every_entry_point_agrees_with_its_signature():
     assert "rpa_tile_kernel" in src and "cp_async16" in src
     core = (_build.CSRC / "hopper_attention.cuh").read_text()
     assert "wgmma.mma_async" in core and "torch/" not in core
+
+
+# ------------------------------------------------- rpa_kernel's key split
+PLAN_CASES = [  # (tiles, kv_max, page_size, n_sm)
+    (128, 1024, 16, 132),       # decode: B=4, KV=32, one row a tile
+    (32, 1024, 16, 132),        # decode: B=1
+    (32, 4096, 16, 132),
+    (128, 128, 16, 132),
+    (4, 1024, 16, 132),         # B=1, KV=4: capped at MAX_SPLITS
+    (32, 1008, 16, 132),        # a table whose reach is not a round number
+    (8, 24, 8, 132),            # three pages: chunks of one page each
+    (128, 1024, 1, 132),        # one-row pages
+    (128, 1024, 64, 132),
+    (7, 96, 32, 16),            # a small card
+    (528, 1024, 16, 132),       # the tiles alone fill 4 waves
+    (8192, 1024, 16, 132),      # f32 prefill rows: 128 × 64 tiles
+    (1, 16, 16, 132),           # one page: nothing to split
+]
+
+
+@pytest.mark.parametrize("tiles,kv_max,ps,n_sm", PLAN_CASES)
+def test_split_plan_tiles_the_keys(tiles, kv_max, ps, n_sm):
+    """rpa_kernel's chunks (``_split_plan``) are whole pages and tile [0,
+    kv_max) with no gap and no overlap and no empty chunk; there is one
+    chunk when the tiles alone reach DECODE_WAVES blocks per SM, else
+    enough to fill the card without going below MIN_CHUNK_ROWS rows (or a
+    page) a chunk or above MAX_SPLITS chunks."""
+    splits, chunk = tra._split_plan(tiles, kv_max, ps, n_sm)
+    assert chunk % ps == 0 and chunk > 0 and 1 <= splits <= tra.MAX_SPLITS
+    bounds = [(s * chunk, min((s + 1) * chunk, kv_max))
+              for s in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == kv_max
+    assert all(a < b for a, b in bounds)                      # none empty
+    assert all(b == c for (_, b), (c, _) in zip(bounds, bounds[1:]))
+    target = tra.DECODE_WAVES * n_sm
+    if tiles >= target:
+        assert splits == 1
+    if splits > 1:
+        assert chunk >= min(kv_max, max(ps, tra.MIN_CHUNK_ROWS))
+        assert tiles * splits >= min(target, tiles * tra.MAX_SPLITS,
+                                     tiles * (kv_max // chunk))
+
+
+def test_split_plan_fills_the_card_at_the_serving_shapes():
+    """At Llama-2-7B's decode (B=4 or 1 slots, KV=32, one query row a
+    tile, a 1024-row table of 16-row pages) the split fills an H100 (132
+    SMs) in one launch: 5 chunks of 208 rows (640 blocks, 4.8 a SM) at
+    B=4; at B=1, 8 of MIN_CHUNK_ROWS = 128 (256 blocks: the chunks' floor
+    binds first); the f32 prefill's tiles already fill it and are not
+    split. The plan depends on the shapes alone (not on kv_lens)."""
+    assert tra._split_plan(128, 1024, 16, 132) == (5, 208)
+    assert tra._split_plan(32, 1024, 16, 132) == (8, 128)
+    assert tra._split_plan(32, 4096, 16, 132) == (16, 256)
+    for B in (1, 4):
+        tiles = B * 32 * 1
+        splits, chunk = tra._split_plan(tiles, 1024, 16, 132)
+        assert splits > 1 and tiles * splits >= min(
+            tra.DECODE_WAVES * 132, tiles * 1024 // tra.MIN_CHUNK_ROWS)
+        assert tra._split_plan(tiles, 1024, 16, 132) == (splits, chunk)
+    assert tra._split_plan(4 * 32 * 64, 1024, 16, 132) == (1, 1024)
+
+
+@pytest.mark.parametrize("span,quant,rows", [
+    (1, False, 1), (2, False, 2), (3, False, 4), (4, True, 4),
+    (7, False, 4), (8, False, 8), (8, True, 4), (512, False, 8),
+    (2048, True, 4)])
+def test_rows_per_block(span, quant, rows):
+    """Query rows an rpa_kernel block holds: the C side takes 1, 2, 4 and
+    8 (one-byte pages at most 4)."""
+    assert tra._rows_per_block(span, quant) == rows
+
+
+@pytest.mark.parametrize("kv_len", [1, 63, 64, 65, 700, 1024])
+def test_split_merge_by_the_lse_rule_is_the_unsplit_softmax(kv_len):
+    """A model of rpa_kernel's split in numpy: each chunk of the plan
+    keeps (m, l, acc) in base 2 over its live keys (m = −inf and reads
+    nothing past kv_len), and the merge by the lse rule gives the softmax
+    over every live key, within f32 noise."""
+    rng = np.random.default_rng(kv_len)
+    hd, ps, kv_max = 128, 16, 1024
+    q = rng.standard_normal(hd).astype(np.float64)
+    k = rng.standard_normal((kv_max, hd))
+    v = rng.standard_normal((kv_max, hd))
+    k[kv_len:] = v[kv_len:] = np.nan            # dead rows: never read
+    scale = 1 / np.sqrt(hd)
+    splits, chunk = tra._split_plan(32, kv_max, ps, 132)
+    assert splits > 1
+    parts = []
+    for s in range(splits):
+        c0, c1 = s * chunk, min((s + 1) * chunk, kv_len)
+        if c1 <= c0:
+            parts.append((-np.inf, 0.0, np.zeros(hd)))
+            continue
+        x = k[c0:c1] @ q * scale * np.log2(np.e)
+        m = x.max()
+        p = np.exp2(x - m)
+        parts.append((m, p.sum(), p @ v[c0:c1]))
+    mx = max(m for m, _, _ in parts)
+    den = sum(l * np.exp2(m - mx) for m, l, _ in parts if m > -np.inf)
+    num = sum(a * np.exp2(m - mx) for m, _, a in parts if m > -np.inf)
+    x = k[:kv_len] @ q * scale
+    p = np.exp(x - x.max())
+    want = p @ v[:kv_len] / p.sum()
+    np.testing.assert_allclose(num / den, want, rtol=0, atol=1e-12)

@@ -15,7 +15,8 @@ printing one JSON line ``{group: {case: [max_abs_err, share of the
 kernel's bound, note]}}``. A case fails when its share exceeds 1 or is
 not finite. ``main`` exits 0 when the unmodified copy fails no case and
 every planted fault fails, in every group it must fail, some case it must
-fail by at least ``CATCH_FACTOR`` times its bound.
+fail (or, with ``every_case``, each of its cases) by at least
+``CATCH_FACTOR`` times its bound.
 """
 from __future__ import annotations
 
@@ -38,10 +39,12 @@ class Fault:
     groups the fault must fail: those whose name holds one of
     ``must_fail`` (every group when it is empty), each in a case whose
     name holds one of ``cases`` (any case when it is empty) — so that a
-    fault meant for one kernel cannot pass on another kernel's cases."""
+    fault meant for one kernel cannot pass on another kernel's cases.
+    With ``every_case``, each of ``cases`` must fail in each such group."""
     sites: tuple
     must_fail: tuple = ()
     cases: tuple = ()
+    every_case: bool = False
 
 
 def _as_fault(fault):
@@ -88,6 +91,18 @@ def _caught(share):
     return not math.isfinite(share) or share >= CATCH_FACTOR
 
 
+def group_caught(spec, cases):
+    """Whether a fault ``spec`` counts as caught in a group whose cases
+    measured ``{case: [max_abs_err, share, note]}``: some case it names
+    (any case when it names none) fails by at least CATCH_FACTOR, or with
+    ``every_case`` each case it names does."""
+    hit = [c for c, (_, share, _) in cases.items() if _caught(share)]
+    if spec.every_case:
+        return all(any(k in c for c in hit) for k in spec.cases)
+    return any(not spec.cases or any(k in c for k in spec.cases)
+               for c in hit)
+
+
 def main(script, source, faults, measure):
     """Run ``script`` (an entry script's ``__file__``) as set out in the
     module docstring; returns the exit code."""
@@ -132,9 +147,7 @@ def main(script, source, faults, measure):
                 caught[name][group] = bool(fails)
             elif not spec.must_fail or any(m in group
                                             for m in spec.must_fail):
-                caught[name][group] = any(
-                    _caught(share) for c, (_, share, _) in cases.items()
-                    if not spec.cases or any(k in c for k in spec.cases))
+                caught[name][group] = group_caught(spec, cases)
             for case, (err, share, note) in cases.items():
                 print(f"[{name}] {group} {case}: max_abs_err {err:.3e} "
                       f"({share:.3f} of the bound"

@@ -14,17 +14,23 @@ per-row bound ``flash_attention.tolerance`` that phase 6 applies, and its
 share of a per-tensor bound (the same tolerance times the tensor's
 max|ref|), to show what a per-tensor bound lets through. The copies:
 
-* ``none``     — the kernels as they are; must pass;
-* ``fwd_tile`` — flash_fwd drops the last visible kv tile of every q tile
+* ``none``      — the kernels as they are; must pass;
+* ``fwd_tile``  — flash_fwd drops the last visible kv tile of every q tile
   that starts at or past L/2, in the bf16 kernel on the Hopper tile core
   (``flash_fwd_kernel``) and in the f32 one (``flash_fwd_f32_kernel``);
-* ``dq_tile``  — flash_bwd_dq drops the same tile;
-* ``dkv_tile`` — flash_bwd_dkv drops its last q tile for every kv tile
-  that starts at or past S/2.
+* ``bwd_dq_pair`` — the bf16 backward (``flash_bwd_kernel``) drops the dq
+  reduction of the pairs of query tile 0 (under ``causal`` only key tile
+  0 sees it: one (q tile, key tile) pair); must fail bf16 dq;
+* ``bwd_last_q`` — ``flash_bwd_kernel`` drops the last query tile of its
+  walk for every key tile at or past S/2; must fail bf16 dq, dk and dv;
+* ``dq_tile``   — the f32 flash_bwd_dq drops the last visible kv tile of
+  every q tile that starts at or past L/2 (f32);
+* ``dkv_tile``  — the f32 flash_bwd_dkv drops its last q tile for every kv
+  tile that starts at or past S/2 (f32).
 
 Exits 0 when the unmutated kernels pass the per-row bound in both dtypes
-and every planted fault fails it in both by at least
-``fault_check.CATCH_FACTOR``.
+and every planted fault fails it, in the dtypes and outputs it names, by
+at least ``fault_check.CATCH_FACTOR``.
 """
 from __future__ import annotations
 
@@ -46,14 +52,27 @@ KV_TILES_CUT = ("  const int n_kv = (kv_end > 0 ? (kv_end + kTile - 1) / kTile"
                 " : 0) - (q0 >= p.L / 2);")
 # (source text, replacement, which occurrence: TILES is 0 in the f32
 # forward, 1 in dq)
+# the bf16 backward's dq reduction of one (query tile, key tile) pair,
+# and its walk's length
+DQ_REDUCE = "      if (threadIdx.x % kWG == 0) {\n        tma_reduce_add_4d(&tdq"
+BWD_QT = "  const int n_qt = (p.L + kTile - 1) / kTile - qt0;"
 FAULTS = {
     "none": None,
     "fwd_tile": Fault(sites=((KV_TILES, KV_TILES_CUT, 0),
                              (TILES, TILES_CUT, 0))),
-    "dq_tile": (TILES, TILES_CUT, 1),
-    "dkv_tile": ("  for (int qt = qt0; qt < n_qt; ++qt) {",
-                 "  for (int qt = qt0; qt < n_qt - (k0 >= p.S / 2); ++qt) {",
-                 0),
+    "bwd_dq_pair": Fault(sites=((DQ_REDUCE, DQ_REDUCE.replace(
+        "== 0) {", "== 0 && q0 != 0) {"), 0),),
+                         must_fail=("bfloat16",), cases=("dq",)),
+    "bwd_last_q": Fault(sites=((BWD_QT, BWD_QT[:-1] + " - (k0 >= p.S / 2);",
+                                0),),
+                        must_fail=("bfloat16",), cases=("dq", "dk", "dv"),
+                        every_case=True),
+    "dq_tile": Fault(sites=((TILES, TILES_CUT, 1),), must_fail=("float32",),
+                     cases=("dq",)),
+    "dkv_tile": Fault(sites=(("  for (int qt = qt0; qt < n_qt; ++qt) {",
+                              "  for (int qt = qt0; qt < n_qt - (k0 >= p.S /"
+                              " 2); ++qt) {", 0),),
+                      must_fail=("float32",), cases=("dk", "dv")),
 }
 
 

@@ -10,7 +10,10 @@ checkout), builds it with nvcc, and holds the kernels against their plain
 version as phase 3 of ``chip_smoke.py`` does: int8 and fp8 pools (K4) and
 bf16 pools (K3), f32 and bf16 models, decode rows (``rpa_kernel``) and
 ragged prefill and suffix rows (in bf16 the tile path), groups 1 and 4,
-head_dim 128, page size 16, dead rows poisoned. For every case it prints
+head_dim 128, page size 16, dead rows poisoned; and decode at B=1 and
+B=4 with long slots over a 1024-row table, where rpa_kernel splits the
+keys (5 chunks of 208 rows at B=4 and groups 1, else 8 of 128, on 132
+SMs). For every case it prints
 max|kernel − plain| and that error's share of the bound
 ``ragged_attention.tolerance`` (per row in f32, per element in bf16). The
 copies:
@@ -20,6 +23,10 @@ copies:
   the scale of the page's row 0 (must fail every int8/fp8 group);
 * ``last_page``       — rpa_kernel skips each slot's last live page (every
   group);
+* ``merge_last``      — rpa_kernel's merge of the chunks skips the last
+  one (the decode cases of every group);
+* ``chunk_gap``       — rpa_kernel leaves one page unread between every two
+  chunks, the last of each chunk (the decode cases of every group);
 * ``tile_last_page``  — rpa_tile_kernel skips each slot's last live page
   (the prefill or suffix cases of every bf16 group);
 * ``tile_last_tile``  — rpa_tile_kernel skips the last key tile of every
@@ -49,6 +56,9 @@ STAGED_SCALE = "        const float scale = sc[which * kTile + r];"
 # the cases that run rpa_tile_kernel in a bf16 group (decode runs
 # rpa_kernel): a tile fault must fail one of these
 TILE_CASES = ("prefill", "suffix")
+# rpa_kernel's merge of its chunks, and the end of a chunk
+MERGE = "      for (int sp = 0; sp < splits; ++sp) {"
+CHUNK_END = "  const int c1 = min(c0 + p.chunk, lmax);"
 FAULTS = {
     "none": None,
     "row0_scale": Fault(sites=((SCALE_ROW, "          const long long soff ="
@@ -56,6 +66,10 @@ FAULTS = {
                         must_fail=("int8", "fp8")),
     "last_page": (LIMIT, LIMIT + "\n      l = min(l, (kv_len - 1) / p.ps * "
                   "p.ps);", 0),
+    "merge_last": Fault(sites=((MERGE, MERGE.replace("splits", "splits - 1"),
+                                0),), cases=("decode",)),
+    "chunk_gap": Fault(sites=((CHUNK_END, CHUNK_END.replace(
+        "p.chunk", "p.chunk - p.ps"), 0),), cases=("decode",)),
     "tile_last_page": Fault(sites=((TILE_LIMIT, "    return max(min(l, "
                                     "(kv_len - 1) / p.ps * p.ps), 0);", 0),),
                             must_fail=("bfloat16",), cases=TILE_CASES),
@@ -87,6 +101,9 @@ def measure(device="cuda"):
                 if pages == "bf16" and dtype == torch.float32:
                     continue
                 kinds = {"decode": ([1] * 4, rng.integers(1, 1025, 4)),
+                         "decode split B=1": ([1], [1000]),
+                         "decode split B=4": ([1] * 4,
+                                              [1024, 1000, 900, 1017]),
                          "prefill": ([512, 300, 0, 37], [512, 300, 77, 37]),
                          "suffix": ([130, 65, 7, 100], [1000, 65, 300, 613])}
                 for kind, (ql, kl) in kinds.items():

@@ -73,19 +73,21 @@ the repository. Phases, each failing the run when its check fails:
               flash_bwd 1 per layer per step, the f32 backward kernels
               0), step time, tokens/s, peak memory, and one profiled
               step;
-8. sparse   — the block-sparse kernels (K5 ``bsa_fwd``; K6 ``bsa_bwd_dq``
-              and ``bsa_bwd_dkv``) against their plain versions on nine
-              patterns (partial 16-blocks, tril, duplicates, a fully
-              covered block, 70-wide blocks, T=127 padded, a ragged last
-              tile, rows and keys outside the pattern, a row masked across
-              a whole tile), f32 and bf16, D 128 and 64; then
-              ``sparse.fused_attention`` forward and backward at B=1,
-              H=32, T=8192, D=128, bf16, under a Longformer mask (window
-              ±256, 64 global tokens) as a sparse CSR tensor, twice: 1/1/1
-              launches a call, one compile, out/dq/dk/dv row by row
-              against the plain versions; and the kernels' times beside
-              their bounds, the plain versions and SDPA with the dense
-              mask.
+8. sparse   — the block-sparse kernels (K5 ``bsa_fwd``; K6 ``bsa_bwd``
+              in bf16: preparation, ``bsa_bwd_kernel`` and conversion in
+              one launch call, ``bsa_bwd_dq`` and ``bsa_bwd_dkv`` in f32)
+              against their plain versions on nine patterns (partial
+              16-blocks, tril, duplicates, a fully covered block, 70-wide
+              blocks, T=127 padded, a ragged last tile, rows and keys
+              outside the pattern, a row masked across a whole tile), f32
+              and bf16, D 128 and 64; then ``sparse.fused_attention``
+              forward and backward at B=1, H=32, T=8192, D=128, bf16,
+              under a Longformer mask (window ±256, 64 global tokens) as a
+              sparse CSR tensor, twice: ``bsa_fwd`` and ``bsa_bwd`` once a
+              call, the f32 kernels never, one compile, out/dq/dk/dv row
+              by row against the plain versions; and the kernels' times
+              beside their bounds, the plain versions, SDPA with the dense
+              mask and FlexAttention with the pattern's block mask.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -1659,9 +1661,12 @@ BSA_SHAPE = (1, 32, 8192, 128)            # B, H, T, D: Llama-2-7B's width
 LONGFORMER = (256, 64)                    # window ±256, 64 global tokens
 BSA_REPLACES = {
     "bsa_fwd": "paddle_tpu/ops/block_sparse_attention.py:73",
-    "bsa_bwd_dq": "paddle_tpu/ops/block_sparse_attention.py:192",
-    "bsa_bwd_dkv": "paddle_tpu/ops/block_sparse_attention.py:254",
+    # one kernel for both of K6's (dq_kernel :192, dkv_kernel :254)
+    "bsa_bwd": "paddle_tpu/ops/block_sparse_attention.py:192",
 }
+BSA_REPLACES_ALSO = {"bsa_bwd": "paddle_tpu/ops/block_sparse_attention.py:254"}
+# K6's f32 kernels, which the bf16 path never launches
+BSA_F32 = ("bsa_bwd_dq", "bsa_bwd_dkv")
 
 
 def longformer_pattern(T, window, n_global):
@@ -1724,12 +1729,31 @@ def bsa_patterns():
     return out
 
 
+def poison_cache(device="cuda"):
+    """Fill the free memory of the CUDA caching allocator with all-ones
+    bytes (NaN in f32 and bf16), so that an output a kernel leaves
+    unwritten reads NaN, never a stale 0 that an exact-zero check would
+    pass: every free block the allocator keeps (taken back at its exact
+    size), then fresh 1 MiB blocks for the small pool and 64 MiB for the
+    large one."""
+    import torch
+    if device != "cuda":
+        return
+    torch.cuda.empty_cache()
+    sizes = [blk["size"] for seg in torch.cuda.memory_snapshot()
+             for blk in seg["blocks"] if blk["state"] == "inactive"]
+    held = [torch.full((n // 4,), -1, dtype=torch.int32, device=device)
+            for n in sizes + [2 ** 20] * 16 + [2 ** 26]]
+    del held
+
+
 def bsa_cases(device="cuda"):
     """Phase 8 (a): K5 and K6 against their plain versions on every
     pattern of bsa_patterns, f32 and bf16, D=128 ([B, T, H, D] inputs)
     and D=64 (the [B, H, T, D] layout read through strides); each output
     row within ``tolerance``, lse within LSE_TOL where finite, and rows and
-    keys outside the pattern exactly 0 (lse −inf)."""
+    keys outside the pattern exactly 0 (lse −inf), with the allocator's
+    free memory poisoned first (``poison_cache``)."""
     import torch
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1756,9 +1780,11 @@ def bsa_cases(device="cuda"):
 
                 q, k, v, do = t(), t(), t(), t()
                 name = f"{label} D={D} {str(dtype)[6:]}"
+                poison_cache(device)
                 out, lse = bsa.bsa_forward(q, k, v, pat)
                 ref, ref_lse = bsa.bsa_fwd_reference(
                     q, k, v, pat.block_map, pat.masks, block, block)
+                poison_cache(device)
                 dq, dk, dv = bsa.bsa_backward(q, k, v, ref, ref_lse, do, pat)
                 grads = bsa.bsa_bwd_reference(q, k, v, ref, ref_lse, do,
                                               pat.block_map, pat.masks,
@@ -1798,8 +1824,9 @@ def bsa_cases(device="cuda"):
 def bsa_path(device="cuda"):
     """Phase 8 (b): ``sparse.fused_attention`` forward and backward at
     BSA_SHAPE in bf16 under the Longformer mask as a torch sparse CSR
-    tensor on the card, twice. Checks K5/K6 launches (1/1/1 a call, no K1
-    or K2), one compile for both calls, and out, dq, dk, dv row by row
+    tensor on the card, twice. Checks K5/K6 launches (``bsa_fwd`` and
+    ``bsa_bwd`` once a call; K6's f32 kernels, K1 and K2 never), one
+    compile for both calls, and out, dq, dk, dv row by row
     against ``block_sparse_attention_plain`` on the same inputs.
     Returns (launches, errors, the inputs, the pattern's rows and columns
     and the compiled pattern), for the timings."""
@@ -1839,7 +1866,7 @@ def bsa_path(device="cuda"):
     if device == "cuda":
         torch.cuda.synchronize()
     second_s = time.perf_counter() - t0
-    launches = {n: bsa.LAUNCHES[n] for n in BSA_REPLACES}
+    launches = {n: bsa.LAUNCHES[n] for n in (*BSA_REPLACES, *BSA_F32)}
     compiled = bsa._get_pattern.cache_info().misses - misses
     tm = fn.plan.tile_map
     print(f"[sparse] fused_attention B={B} H={H} T={T} D={D} bf16, "
@@ -1853,8 +1880,10 @@ def bsa_path(device="cuda"):
           f"{first_s:.3f} s (compile included) and {second_s:.3f} s; "
           f"launches {launches}, flash {dict(fa.LAUNCHES)}, patterns "
           f"compiled {compiled}", flush=True)
-    check(launches == {n: 2 for n in BSA_REPLACES},
-          f"launches {launches} over two calls, want 1/1/1 a call")
+    check(launches == {**{n: 2 for n in BSA_REPLACES},
+                       **{n: 0 for n in BSA_F32}},
+          f"launches {launches} over two calls, want bsa_fwd and bsa_bwd "
+          "once a call, the f32 kernels never")
     check(not any(fa.LAUNCHES.values()), f"K1/K2 launched: "
           f"{dict(fa.LAUNCHES)}")
     check(compiled == 1 and mask._bsa_fn_memo[1] is fn,
@@ -1882,11 +1911,47 @@ def bsa_path(device="cuda"):
         (rows, cols), fn
 
 
+def flex_times(inputs, out):
+    """FlexAttention (``torch.nn.attention.flex_attention`` under
+    ``torch.compile``) with a block mask built from the Longformer
+    ``mask_mod`` on phase 8's [B, H, T, D] inputs: a yardstick that
+    computes K5/K6's function without T² work; the port never calls it.
+    Returns (forward, backward, forward+backward ms by ``time_ms``, max
+    |flex − out| against K5's ``out`` [B, T, H, D])."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    q, k, v, do = inputs
+    T = q.shape[2]
+    window, n_global = LONGFORMER
+
+    def mask_mod(b, h, qi, ki):
+        return ((qi - ki).abs() <= window) | (qi < n_global) | \
+            (ki < n_global)
+
+    block_mask = create_block_mask(mask_mod, None, None, T, T,
+                                   device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    ref = flex(qs, ks, vs, block_mask=block_mask)
+    diff = float((ref.detach().transpose(1, 2).float() - out.float())
+                 .abs().max())
+    fwd = time_ms(lambda: flex(qs, ks, vs, block_mask=block_mask))
+    bwd = time_ms(lambda: torch.autograd.grad(ref, (qs, ks, vs), do,
+                                              retain_graph=True))
+    both = time_ms(lambda: torch.autograd.grad(
+        flex(qs, ks, vs, block_mask=block_mask), (qs, ks, vs), do))
+    return fwd, bwd, both, diff
+
+
 def bsa_times(inputs, pattern, fn, errs):
-    """Phase 8 (c): bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv at the path's shape
-    beside their bounds, the plain versions, and SDPA with the dense
-    boolean [T, T] mask (forward, backward, forward+backward), a yardstick
-    the port never calls. CUDA events, median of 30 after 5 warm-ups."""
+    """Phase 8 (c): bsa_fwd and the whole bf16 bsa_bwd launch call
+    (preparation, ``bsa_bwd_kernel``, conversion, with their scratch
+    allocated) at the path's shape beside their bounds, the plain
+    versions, SDPA with the dense boolean [T, T] mask and FlexAttention
+    with the pattern's block mask (forward, backward, forward+backward),
+    yardsticks the port never calls. CUDA events, median of 30 after 5
+    warm-ups."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
@@ -1895,18 +1960,15 @@ def bsa_times(inputs, pattern, fn, errs):
     B, T, H, D = q.shape
     scale = fa._scale(D, None)
     out, lse = bsa._bsa_fwd(q, k, v, fn, scale)
-    delta = fa._bwd_delta(out, do)
     fwd_ms = time_ms(lambda: bsa._bsa_fwd(q, k, v, fn, scale))
-    dq_ms = time_ms(lambda: bsa._bsa_bwd_dq(q, k, v, do, lse, delta, fn,
-                                            scale))
-    dkv_ms = time_ms(lambda: bsa._bsa_bwd_dkv(q, k, v, do, lse, delta, fn,
-                                              scale))
+    bwd_ms = time_ms(lambda: bsa._bsa_bwd(q, k, v, out, lse, do, fn, scale))
     plain_fwd = time_ms(lambda: bsa.bsa_fwd_reference(
         q, k, v, fn.block_map, fn.masks, fn.block_q, fn.block_k))
     plain_bwd = time_ms(lambda: bsa.bsa_bwd_reference(
         q, k, v, out, lse, do, fn.block_map, fn.masks, fn.block_q,
         fn.block_k))
-    # the yardstick: dense attention under the pattern as a [T, T] mask
+    # the yardsticks: dense attention under the pattern as a [T, T] mask,
+    # and FlexAttention
     dense = torch.zeros((T, T), dtype=torch.bool, device=q.device)
     dense[tuple(torch.from_numpy(x).to(q.device) for x in pattern)] = True
     pairs = int(dense.sum())
@@ -1921,56 +1983,60 @@ def bsa_times(inputs, pattern, fn, errs):
     lib_both = time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qs, ks, vs, attn_mask=dense),
         (qs, ks, vs), inputs[3]))
-    del ref, dense
+    del ref, dense, qs, ks, vs
+    flex_fwd, flex_bwd, flex_both, flex_diff = flex_times(inputs, out)
     item = 2
     act = B * T * H * D * item                    # one [B, T, H, D] tensor
     rows = 4 * B * H * T                          # one f32 per row
-    plan_q = sum(x.numel() * x.element_size() for x in fn.q_plan)
-    plan_k = sum(x.numel() * x.element_size() for x in fn.k_plan)
-    bits = fn.bits.numel() * fn.bits.element_size()
+
+    def nbytes(arrays):
+        return sum(x.numel() * x.element_size() for x in arrays)
+
+    bits = nbytes([fn.bits])
     hp = B * H * pairs
     work = {   # (flops, bytes): each input read once, each output written
-        "bsa_fwd": (4 * D * hp, 4 * act + rows + plan_q + bits),
-        "bsa_bwd_dq": (6 * D * hp, 5 * act + 2 * rows + plan_q + bits),
-        "bsa_bwd_dkv": (8 * D * hp, 6 * act + 2 * rows + plan_k + bits),
+        # once; the backward's 5 products per attended pair (s, dp, dv,
+        # dk, dq) read q, k, v, out, dout, lse and write dq, dk, dv
+        "bsa_fwd": (4 * D * hp, 4 * act + rows + nbytes(fn.fwd_plan) + bits),
+        "bsa_bwd": (10 * D * hp,
+                    8 * act + rows + nbytes(fn.bwd_plan) + bits),
     }
-    times = {"bsa_fwd": (fwd_ms, plain_fwd, lib_fwd),
-             "bsa_bwd_dq": (dq_ms, plain_bwd, lib_bwd),
-             "bsa_bwd_dkv": (dkv_ms, plain_bwd, lib_bwd)}
+    times = {"bsa_fwd": (fwd_ms, plain_fwd, lib_fwd, flex_fwd),
+             "bsa_bwd": (bwd_ms, plain_bwd, lib_bwd, flex_bwd)}
     shape = (f"B={B} T={T} H={H} D={D} bf16, Longformer ±{LONGFORMER[0]} + "
              f"{LONGFORMER[1]} global, block {fn.block_q}")
     recs = {}
-    for name, (flops, nbytes) in work.items():
-        ms, plain_ms, lib_ms = times[name]
+    for name, (flops, nb) in work.items():
+        ms, plain_ms, lib_ms, flex_ms = times[name]
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_bytes = nb / HBM_BYTES_PER_S * 1e3
         recs[name] = {"ms": ms, "plain_ms": plain_ms,
                       "bound_ms": max(t_ops, t_bytes),
                       "bound_by": "operations" if t_ops >= t_bytes
                       else "bytes",
-                      "library_ms": lib_ms, "max_abs_err": errs[name],
-                      "shape": shape, "flops": flops, "bytes": nbytes,
+                      "library_ms": lib_ms, "flex_ms": flex_ms,
+                      "max_abs_err": errs[name],
+                      "shape": shape, "flops": flops, "bytes": nb,
                       "ops_ms": t_ops, "bytes_ms": t_bytes,
                       "tflops_per_s": flops / ms / 1e9,
                       "sdpa_fwd_bwd_ms": lib_both,
+                      "flex_fwd_bwd_ms": flex_both,
                       "tiles": {"active": int((tm > 0).sum()),
                                 "full": int((tm == 1).sum()),
                                 "mixed": int((tm == 2).sum())},
+                      "steps_per_head": int(getattr(
+                          fn.plan, name[4:] + "_ptr")[-1]),
                       "pairs": pairs}
         print(f"  {name} {shape}: kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s), bound "
               f"{recs[name]['bound_ms']:.4f} ms ({recs[name]['bound_by']}; "
               f"operations {t_ops:.4f}, bytes {t_bytes:.4f}), plain "
-              f"{plain_ms:.4f} ms, sdpa with the dense mask {lib_ms:.4f} ms",
-              flush=True)
-    whole = max(10 * D * hp / PEAK_FLOPS["bfloat16"] * 1e3,
-                (7 * act + 2 * rows + plan_q + plan_k + bits)
-                / HBM_BYTES_PER_S * 1e3)
-    print(f"  K6 whole (bsa_bwd_dq + bsa_bwd_dkv): {dq_ms + dkv_ms:.4f} ms, "
-          f"bound of the whole backward {whole:.4f} ms (5 products), plain "
-          f"{plain_bwd:.4f} ms; sdpa with the dense mask: backward "
-          f"{lib_bwd:.4f} ms, forward+backward {lib_both:.4f} ms; {pairs} "
-          f"pairs", flush=True)
+              f"{plain_ms:.4f} ms, sdpa with the dense mask {lib_ms:.4f} "
+              f"ms, flex {flex_ms:.4f} ms", flush=True)
+    print(f"  forward+backward: kernels {fwd_ms + bwd_ms:.4f} ms, sdpa with "
+          f"the dense mask {lib_both:.4f} ms, flex {flex_both:.4f} ms; "
+          f"flex out within {flex_diff:.3e} of K5's; {pairs} pairs",
+          flush=True)
     return recs
 
 
@@ -1981,17 +2047,22 @@ def sparse_phase(device="cuda"):
     torch.cuda.empty_cache()
     bsa_cases(device)
     launches, errs, inputs, pattern, fn = bsa_path(device=device)
-    err = {"bsa_fwd": errs["out"][0], "bsa_bwd_dq": errs["dq"][0],
-           "bsa_bwd_dkv": max(errs["dk"][0], errs["dv"][0])}
+    err = {"bsa_fwd": errs["out"][0],
+           "bsa_bwd": max(errs[g][0] for g in ("dq", "dk", "dv"))}
     recs = bsa_times(inputs, pattern, fn, err)
     del inputs, fn
     torch.cuda.empty_cache()
-    return [{"name": name, "route": "cuda",
-             "source": "paddle_tpu_torch/ops/csrc/block_sparse_attention.cu",
-             "replaces": BSA_REPLACES[name], "path": PATHS[name],
-             "launches": launches[name],
-             "launches_per_call": launches[name] // 2, **rec}
-            for name, rec in recs.items()]
+    records = [{"name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/ops/csrc/"
+                          "block_sparse_attention.cu",
+                "replaces": BSA_REPLACES[name], "path": PATHS[name],
+                "launches": launches[name],
+                "launches_per_call": launches[name] // 2, **rec}
+               for name, rec in recs.items()]
+    for rec in records:
+        if rec["name"] in BSA_REPLACES_ALSO:
+            rec["replaces_also"] = BSA_REPLACES_ALSO[rec["name"]]
+    return records
 
 
 FLASH_REPLACES = {
@@ -2005,9 +2076,11 @@ PATHS = {
     "flash_bwd": "flash_bwd_kernel: Hopper tile core, 5 wgmma products, "
                  "f32 dq by TMA reduce-adds (with its prep and convert "
                  "kernels)",
-    "bsa_fwd": "bsa_fwd_kernel: mma.sync tiles over the 64-tile plan",
-    "bsa_bwd_dq": "bsa_bwd_dq_kernel: mma.sync tiles over the plan",
-    "bsa_bwd_dkv": "bsa_bwd_dkv_kernel: mma.sync tiles over the plan",
+    "bsa_fwd": "bsa_fwd_kernel: Hopper tile core (wgmma, TMA ring) over "
+               "the plan's pair lists",
+    "bsa_bwd": "bsa_bwd_kernel: Hopper tile core, 5 wgmma products over "
+               "the plan's pair lists, f32 dq by TMA reduce-adds (with its "
+               "prep and convert kernels)",
 }
 
 

@@ -69,10 +69,15 @@ SIGNATURES = {
         "flash_bwd_wgmma_check": ([_P] * 3 + [_I, _P], _I),
     },
     "block_sparse_attention": {
-        # tensor pointers, the tile plan (ptr, ent, bits), dtype, B, T, H,
-        # D, scale, strides, stream
-        "bsa_fwd_launch": ([_P] * 8 + [_I] * 5 + [ctypes.c_float, _P, _P],
+        # tensor pointers, the tile plan (ptr, ent, bits), the pair plan
+        # (ptr, ent, order), dtype, B, T, H, D, scale, strides, stream
+        "bsa_fwd_launch": ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _P, _P],
                            _I),
+        # q, k, v, out, dout, lse, lse2, delta, dq_acc, dq, dk, dv, the
+        # pair plan (ptr, ent, bits, order), then as above
+        "bsa_bwd_launch": ([_P] * 16 + [_I] * 5 + [ctypes.c_float, _P, _P],
+                           _I),
+        # tensor pointers, the tile plan (ptr, ent, bits), then as above
         "bsa_bwd_dq_launch": ([_P] * 10 + [_I] * 5
                               + [ctypes.c_float, _P, _P], _I),
         "bsa_bwd_dkv_launch": ([_P] * 11 + [_I] * 5

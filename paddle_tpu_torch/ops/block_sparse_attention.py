@@ -18,20 +18,29 @@ finite, ds carrying the scale, dk = dsᵀ·q with the unscaled q). Both run
 one query block at a time over that block's active key blocks, in exact
 f32, and return outputs in their inputs' dtypes.
 
-The CUDA kernels (``csrc/block_sparse_attention.cu``: ``bsa_fwd``,
-``bsa_bwd_dq``, ``bsa_bwd_dkv``) do not walk the pattern's blocks, whose
-size is the caller's (any divisor of T: 8, 70, 512, ...). ``tile_plan``
-derives from ``block_map`` and ``partial_masks`` a plan at the kernels' own
-tile of ``TILE`` × ``TILE``: each tile is skipped (no pair), full (every
-pair: no per-element test) or mixed (one 64-bit word of attended keys per
-query row). At T=8192 under a Longformer pattern the 512-blocks that
-``fused_attention`` picks cover 28.9% of T², the plan's 64-tiles 8.4%.
+The CUDA kernels (``csrc/block_sparse_attention.cu``) do not walk the
+pattern's blocks, whose size is the caller's (any divisor of T: 8, 70,
+512, ...). ``tile_plan`` derives from ``block_map`` and ``partial_masks`` a
+plan at the kernels' own tile of ``TILE`` × ``TILE``: each tile is skipped
+(no pair), full (every pair: no per-element test) or mixed (one 64-bit
+word of attended keys per query row). At T=8192 under a Longformer
+pattern the 512-blocks that ``fused_attention`` picks cover 28.9% of T²,
+the plan's 64-tiles 8.4%. bf16 runs on the Hopper tile core of
+``csrc/hopper_attention.cuh``: ``bsa_fwd`` (wgmma products over the active
+K/V tiles of each 128-row block, which TMA streams into a two-stage ring)
+and ``bsa_bwd`` (one kernel doing the five products of each (key tile,
+query tile) pair on wgmma, dq summed in an f32 accumulator by TMA
+reduce-adds, with a preparation and a conversion kernel in the same launch
+call); f32 runs on CUDA cores (``bsa_fwd``, ``bsa_bwd_dq`` and
+``bsa_bwd_dkv``).
 
 Dispatch follows the tensors' device and nothing else: CPU tensors take
 the plain versions, CUDA tensors launch the kernels or raise. Tolerances
 are ``flash_attention.tolerance``'s (per row of out and dq, per key of dk
 and dv) and ``LSE_TOL`` on lse where it is finite: the kernels round p and
-ds to bf16 as tensor-core operands exactly as K1 and K2 do.
+ds to bf16 as tensor-core operands exactly as K1 and K2 do. The bf16
+backward sums dq in f32 across blocks in an order that changes from run
+to run: dq's bits do, its bound does not.
 """
 from __future__ import annotations
 
@@ -46,8 +55,8 @@ import torch
 
 from .._device import resolve_device
 from .flash_attention import (_DTYPE_CODE, LSE_TOL, SUPPORTED_HEAD_DIMS,
-                              _bwd_delta, _check, _scale, _strides,
-                              tolerance)
+                              _bwd_delta, _check, _check_tma, _scale,
+                              _strides, tolerance)
 
 __all__ = ["block_sparse_attention", "block_sparse_attention_plain",
            "compile_pattern", "pattern_to_block_map", "tile_plan",
@@ -94,13 +103,25 @@ def pattern_to_block_map(rows, cols, T, block_q, block_k):
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """The pattern at the kernels' tile (see ``tile_plan``)."""
+    """The pattern at the kernels' tile (see ``tile_plan``). The 64-tile
+    lists serve the f32 kernels, the pair lists the bf16 ones."""
     tile_map: np.ndarray  # [n, n] int8: 0 skip, 1 full, 2 mixed
     bits: np.ndarray      # [mixed, tile] int64: bit c of word r = pair (r, c)
     q_ptr: np.ndarray     # [n + 1] int32: q tile i's entries q_ent[ptr[i]:]
     q_ent: np.ndarray     # [active, 2] int32: (k tile, bits slot or −1)
     k_ptr: np.ndarray     # [n + 1] int32: the same by k tile
     k_ent: np.ndarray     # [active, 2] int32: (q tile, bits slot or −1)
+    fwd_ptr: np.ndarray   # [m + 1] int32: 2-tile q block i's entries
+    fwd_ent: np.ndarray   # [·, 3] int32: (k tile, slot of either half)
+    fwd_order: np.ndarray  # [m] int32: q blocks, longest list first
+    bwd_ptr: np.ndarray   # [m + 1] int32: the same by 2-tile k block
+    bwd_ent: np.ndarray   # [·, 3] int32: (q tile, slot of either half)
+    bwd_order: np.ndarray  # [m] int32: k blocks, longest list first
+
+
+# a half's slot in a pair list where its tile holds no pair (−1: full,
+# ≥ 0: its words in ``bits``); kSkip in the kernel source
+SKIP = -2
 
 
 def _by_first(major, minor, slot, n):
@@ -108,6 +129,28 @@ def _by_first(major, minor, slot, n):
     by ``major`` (already sorted)."""
     ptr = np.concatenate([[0], np.cumsum(np.bincount(major, minlength=n))])
     return ptr.astype(np.int32), np.stack([minor, slot], 1).astype(np.int32)
+
+
+def _pair_lists(tile_map, slot):
+    """The lists of the bf16 kernels, whose blocks own two tiles along the
+    first axis of ``tile_map`` [n, n] (``slot`` [n, n]: −1 full, ≥ 0 the
+    mixed tile's words): (ptr [m + 1], entries [·, 3] = (tile along the
+    second axis, slot of the first tile, slot of the second, ``SKIP``
+    where that tile holds no pair), order [m]: the blocks by list length,
+    longest first; m = ⌈n / 2⌉). Each list is the union of its two tiles'
+    lists in ascending order; a block whose tiles hold no pair has an
+    empty one."""
+    n = tile_map.shape[0]
+    m = -(-n // 2)
+    tm = np.zeros((2 * m, n), tile_map.dtype)
+    tm[:n] = tile_map
+    sl = np.full((2 * m, n), SKIP, np.int64)
+    sl[:n] = np.where(tile_map > 0, slot, SKIP)
+    blk, tile = np.nonzero((tm.reshape(m, 2, n) > 0).any(1))
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(blk, minlength=m))])
+    ent = np.stack([tile, sl[2 * blk, tile], sl[2 * blk + 1, tile]], 1)
+    order = np.argsort(-np.diff(ptr), kind="stable")
+    return ptr.astype(np.int32), ent.astype(np.int32), order.astype(np.int32)
 
 
 def tile_plan(block_map, masks, T, block_q, block_k, tile=TILE):
@@ -118,10 +161,13 @@ def tile_plan(block_map, masks, T, block_q, block_k, tile=TILE):
     the pattern holds every one of its pairs, 0 when it holds none, 2
     otherwise; each mixed tile gets ``tile`` 64-bit words (``tile`` ≤
     64), bit c of word r set when pair (r, c) of the tile is attended.
-    The active tiles are listed by query tile (for ``bsa_fwd`` and
-    ``bsa_bwd_dq``) and by key tile (for ``bsa_bwd_dkv``), each in
-    ascending order. Host work is O(the active blocks' area), never
-    [T, T]."""
+    The active tiles are listed by query tile (for the f32 ``bsa_fwd`` and
+    ``bsa_bwd_dq``) and by key tile (for the f32 ``bsa_bwd_dkv``), each in
+    ascending order; for the bf16 kernels, whose blocks own two tiles,
+    by pair of query tiles (``bsa_fwd``) and by pair of key tiles
+    (``bsa_bwd``), each with both halves' slots and an order that puts the
+    longest lists first (``_pair_lists``). Host work is O(the active
+    blocks' area), never [T, T]."""
     block_map = np.asarray(block_map)
     masks = np.asarray(masks)
     n = -(-T // tile)
@@ -146,7 +192,10 @@ def tile_plan(block_map, masks, T, block_q, block_k, tile=TILE):
     q_ptr, q_ent = _by_first(qi, kj, slot[qi * n + kj], n)
     kj2, qi2 = np.nonzero(tile_map.T)
     k_ptr, k_ent = _by_first(kj2, qi2, slot[qi2 * n + kj2], n)
-    return TilePlan(tile_map, bits, q_ptr, q_ent, k_ptr, k_ent)
+    slot = slot.reshape(n, n)
+    return TilePlan(tile_map, bits, q_ptr, q_ent, k_ptr, k_ent,
+                    *_pair_lists(tile_map, slot),
+                    *_pair_lists(tile_map.T, slot.T))
 
 
 # -------------------------------------------------------- plain versions
@@ -268,21 +317,20 @@ def _kernel_layout(t):
     return t.contiguous()
 
 
-def _run(name, pattern, by_key, scale, **tensors):
+def _run(name, plan, scale, **tensors):
     """Launch kernel ``name`` on the current stream with the data pointers
-    of ``tensors`` (in the C signature's order) and the pattern's plan,
-    raise on a launch error, and count the launch."""
+    of ``tensors`` and then of ``plan``'s device arrays (in the C
+    signature's order), raise on a launch error, and count the launch."""
     from . import _build
     q = tensors["q"]
     B, T, H, D = q.shape
-    ptr, ent = pattern.k_plan if by_key else pattern.q_plan
     lib = _build.load("block_sparse_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, name + "_launch")(
-            *(t.data_ptr() for t in tensors.values()), ptr.data_ptr(),
-            ent.data_ptr(), pattern.bits.data_ptr(), _DTYPE_CODE[q.dtype],
-            B, T, H, D, ctypes.c_float(scale), _strides(**tensors), stream)
+            *(t.data_ptr() for t in tensors.values()),
+            *(a.data_ptr() for a in plan), _DTYPE_CODE[q.dtype], B, T, H, D,
+            ctypes.c_float(scale), _strides(**tensors), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
                            f"({_build.error_string(err)})")
@@ -290,34 +338,68 @@ def _run(name, pattern, by_key, scale, **tensors):
 
 
 def _bsa_fwd(q, k, v, pattern, scale):
-    """Launch bsa_fwd: (out like q, lse [B, H, T] f32)."""
+    """Launch bsa_fwd: (out like q, lse [B, H, T] f32). f32 walks the tile
+    lists, bf16 the pair lists."""
     _validate(q, k, v, pattern)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, t)
     B, T, H, _ = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    _run("bsa_fwd", pattern, False, scale, q=q, k=k, v=v, out=out, lse=lse)
+    _run("bsa_fwd", (*pattern.q_plan, pattern.bits, *pattern.fwd_plan),
+         scale, q=q, k=k, v=v, out=out, lse=lse)
     return out, lse
 
 
 def _bsa_bwd_dq(q, k, v, dout, lse, delta, pattern, scale):
-    """Launch bsa_bwd_dq: dq like q."""
+    """Launch bsa_bwd_dq (f32): dq like q."""
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _run("bsa_bwd_dq", pattern, False, scale, q=q, k=k, v=v, dout=dout,
-         lse=lse, delta=delta, dq=dq)
+    _run("bsa_bwd_dq", (*pattern.q_plan, pattern.bits), scale, q=q, k=k,
+         v=v, dout=dout, lse=lse, delta=delta, dq=dq)
     return dq
 
 
 def _bsa_bwd_dkv(q, k, v, dout, lse, delta, pattern, scale):
-    """Launch bsa_bwd_dkv: (dk like k, dv like v)."""
+    """Launch bsa_bwd_dkv (f32): (dk like k, dv like v)."""
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _run("bsa_bwd_dkv", pattern, True, scale, q=q, k=k, v=v, dout=dout,
-         lse=lse, delta=delta, dk=dk, dv=dv)
+    _run("bsa_bwd_dkv", (*pattern.k_plan, pattern.bits), scale, q=q, k=k,
+         v=v, dout=dout, lse=lse, delta=delta, dk=dk, dv=dv)
     return dk, dv
 
 
+def _bsa_bwd_bf16(q, k, v, out, lse, dout, pattern, scale):
+    """Launch bsa_bwd (bf16): (dq like q, dk like k, dv like v). Its f32
+    scratch comes from here: lse·log2(e) and delta [B, H, Tp] (Tp = T
+    rounded up to a whole 64-row tile) and the dq accumulator [B, T, H,
+    D]; the launch's preparation kernel fills them, so none is zeroed
+    here."""
+    _check("out", out, q.dtype, q.device)
+    if out.shape != q.shape:
+        raise ValueError("block-sparse attention backward: out must be "
+                         "like q")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        _check_tma(name, t)
+    B, T, H, D = q.shape
+    Tp = -(-T // TILE) * TILE
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse2 = torch.empty((B, H, Tp), **f32)
+    delta = torch.empty((B, H, Tp), **f32)
+    dq_acc = torch.empty((B, T, H, D), **f32)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    ptr, ent, order = pattern.bwd_plan
+    _run("bsa_bwd", (ptr, ent, pattern.bits, order), scale, q=q, k=k, v=v,
+         out=out, dout=dout, lse=lse, lse2=lse2, delta=delta, dq_acc=dq_acc,
+         dq=dq, dk=dk, dv=dv)
+    return dq, dk, dv
+
+
 def _bsa_bwd(q, k, v, out, lse, dout, pattern, scale):
-    """delta, then bsa_bwd_dq and bsa_bwd_dkv: (dq, dk, dv)."""
+    """(dq, dk, dv): bsa_bwd in bf16 (delta in its preparation kernel); in
+    f32 delta, then bsa_bwd_dq and bsa_bwd_dkv."""
     _validate(q, k, v, pattern)
     dout = _kernel_layout(dout)
     _check("dout", dout, q.dtype, q.device)
@@ -326,6 +408,8 @@ def _bsa_bwd(q, k, v, out, lse, dout, pattern, scale):
             or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("block-sparse attention backward: dout must be "
                          "like q and lse f32 [B, H, T] contiguous")
+    if q.dtype == torch.bfloat16:
+        return _bsa_bwd_bf16(q, k, v, out, lse, dout, pattern, scale)
     delta = _bwd_delta(out, dout)
     dq = _bsa_bwd_dq(q, k, v, dout, lse, delta, pattern, scale)
     dk, dv = _bsa_bwd_dkv(q, k, v, dout, lse, delta, pattern, scale)
@@ -354,8 +438,8 @@ def bsa_forward(q, k, v, pattern):
 
 
 def bsa_backward(q, k, v, out, lse, dout, pattern):
-    """(dq, dk, dv) of K6: the plain version on CPU tensors, the two
-    kernels on CUDA tensors."""
+    """(dq, dk, dv) of K6: the plain version on CPU tensors, the kernels
+    on CUDA tensors."""
     if q.device.type == "cpu":
         return _plain_backward(q, k, v, out, lse, dout, pattern)
     if q.device.type != "cuda":
@@ -404,6 +488,10 @@ class CompiledPattern:
 
         self.q_plan = (dev(self.plan.q_ptr), dev(self.plan.q_ent))
         self.k_plan = (dev(self.plan.k_ptr), dev(self.plan.k_ent))
+        self.fwd_plan = tuple(dev(getattr(self.plan, "fwd_" + x))
+                              for x in ("ptr", "ent", "order"))
+        self.bwd_plan = tuple(dev(getattr(self.plan, "bwd_" + x))
+                              for x in ("ptr", "ent", "order"))
         self.bits = dev(self.plan.bits)
 
     def __call__(self, q, k, v):

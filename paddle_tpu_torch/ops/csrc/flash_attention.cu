@@ -321,43 +321,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 // Sᵀ and dPᵀ (32 each) and one 64-column half of dQ_partial at a time.
 constexpr int kBwdWG = 2;   // consumer warpgroups of the bf16 backward
 
-// dSᵀ (this thread's accumulator entries: key row acc_row(i) % 64, query
-// column acc_col(j, c)) rounded to bf16 into ds, a [64 query rows x 64
-// keys] K-major 128-byte-swizzled chunk: entry (q, key) at q·128 +
-// (((key / 8) ^ (q % 8)) · 16) + (key % 8)·2 — the tile dQ_partial reads
-// as its A operand. The values are those of the dK product's A fragments.
-__device__ __forceinline__ void store_ds(uint8_t* ds, const float (&x)[32]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = hopper::acc_row(e >> 1) & 63;
-      const int q = hopper::acc_col(j, e & 1);
-      *reinterpret_cast<bf16*>(ds + q * 128 + (((key >> 3) ^ (q & 7)) << 4) +
-                               (key & 7) * 2) = __float2bfloat16_rn(x[4 * j + e]);
-    }
-}
-
-// dq = dS·K for 64 columns: ds the [64 x 64 keys] chunk store_ds wrote
-// (A, K-major), kc one 64-column chunk of the 64-key K tile (B, MN-major
-// through the transpose bit). Waits for every wgmma group in flight.
-__device__ __forceinline__ void dq_product(float (&dq)[32], const uint8_t* ds,
-                                           const uint8_t* kc) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-  hopper::fence_regs(dq);
-  hopper::wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    hopper::wgmma_ss_n64_mnb(dq, hopper::desc_kmajor(ds, kk),
-                             hopper::desc_mnmajor(kc, kk), kk > 0);
-  hopper::wg_commit();
-  hopper::wg_wait0();
-  hopper::fence_regs(dq);
-}
-
-constexpr int kDqTileBytes = hopper::kTile * 64 * 4;   // 64 x 64 f32
-
 template <int D>
 __host__ __device__ constexpr int bwd_smem() {
   // alignment slack; K and V (a 64-key tile per warpgroup); two stages of
@@ -365,26 +328,9 @@ __host__ __device__ constexpr int bwd_smem() {
   // each) of each warpgroup; two stages of lse and delta; the K/V
   // mbarrier and one per stage
   return 1024 + (2 * kBwdWG + 4) * hopper::tile_bytes<D>() +
-         kBwdWG * hopper::kChunkBytes + kBwdWG * (D / 64) * kDqTileBytes +
+         kBwdWG * hopper::kChunkBytes +
+         kBwdWG * (D / 64) * hopper::kDqTileBytes +
          2 * 2 * hopper::kTile * 4 + 3 * 8;
-}
-
-// This thread's 64-column dQ_partial (the dq_product accumulator: query
-// row acc_row(i) % 64, column acc_col(j, c)) into buf as the f32 map's two
-// [64 rows x 32 columns] 128-byte-swizzled boxes: column c of row r at
-// (c / 32)·8192 + r·128 + ((((c % 32) / 4) ^ (r % 8)) · 16) + (c % 4)·4.
-__device__ __forceinline__ void store_dq(uint8_t* buf, const float (&dq)[32]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = hopper::acc_row(i) & 63;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = hopper::acc_col(j, 0);
-      *reinterpret_cast<float2*>(
-          buf + (c >> 5) * 8192 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) +
-          (c & 3) * 4) = make_float2(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
-    }
-  }
 }
 
 template <int D>

@@ -1,8 +1,11 @@
 // The Hopper tile core shared by the port's attention kernels:
 // flash_attention.cu's bf16 forward and backward (K1 `flash_fwd_kernel`,
 // K2 `flash_bwd_kernel`, which also uses its wgmma forms with an A or B
-// operand transposed and its bulk copies) and ragged_paged_attention.cu's
-// prefill and suffix rows (K3/K4, `rpa_tile_kernel`). One warpgroup (4 warps, 128 threads) owns a 64-row
+// operand transposed, its bulk copies and its dS / dQ tiles),
+// block_sparse_attention.cu's bf16 forward and backward (K5
+// `bsa_fwd_kernel`, K6 `bsa_bwd_kernel`, on the same forms as K1 and K2)
+// and ragged_paged_attention.cu's prefill and suffix rows (K3/K4,
+// `rpa_tile_kernel`). One warpgroup (4 warps, 128 threads) owns a 64-row
 // query tile and walks 64-row key tiles (K1 puts two warpgroups on one
 // K/V ring):
 //   * S = Q·Kᵀ on `wgmma.mma_async` m64n64k16 with both operands K-major in
@@ -530,6 +533,66 @@ struct FwdTile {
     return (m[i] + log2f(denom(i))) * kLn2;   // −inf for an empty row
   }
 };
+
+// ------------------------------------------ the backward's dS and dQ
+// Shared by K2's flash_bwd_kernel and K6's bsa_bwd_kernel, whose five
+// products per (64-key, 64-query) pair put dS in shared memory for
+// dQ_partial = dS·K and add dQ_partial to an f32 accumulator by TMA
+// reduce-adds (flash_bwd_wgmma_check holds store_ds and dq_product).
+constexpr int kDqTileBytes = kTile * 64 * 4;   // 64 x 64 f32
+
+// dSᵀ (this thread's accumulator entries: key row acc_row(i) % 64, query
+// column acc_col(j, c)) rounded to bf16 into ds, a [64 query rows x 64
+// keys] K-major 128-byte-swizzled chunk: entry (q, key) at q·128 +
+// (((key / 8) ^ (q % 8)) · 16) + (key % 8)·2 — the tile dQ_partial reads
+// as its A operand. The values are those of the dK product's A fragments.
+__device__ __forceinline__ void store_ds(uint8_t* ds, const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = acc_row(e >> 1) & 63;
+      const int q = acc_col(j, e & 1);
+      *reinterpret_cast<__nv_bfloat16*>(
+          ds + q * 128 + (((key >> 3) ^ (q & 7)) << 4) + (key & 7) * 2) =
+          __float2bfloat16_rn(x[4 * j + e]);
+    }
+}
+
+// dq = dS·K for 64 columns: ds the [64 x 64 keys] chunk store_ds wrote
+// (A, K-major), kc one 64-column chunk of the 64-key K tile (B, MN-major
+// through the transpose bit). Waits for every wgmma group in flight.
+__device__ __forceinline__ void dq_product(float (&dq)[32], const uint8_t* ds,
+                                           const uint8_t* kc) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  fence_regs(dq);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n64_mnb(dq, desc_kmajor(ds, kk), desc_mnmajor(kc, kk), kk > 0);
+  wg_commit();
+  wg_wait0();
+  fence_regs(dq);
+}
+
+// This thread's 64-column dQ_partial (the dq_product accumulator: query
+// row acc_row(i) % 64, column acc_col(j, c)) into buf as the f32 map's two
+// [64 rows x 32 columns] 128-byte-swizzled boxes: column c of row r at
+// (c / 32)·8192 + r·128 + ((((c % 32) / 4) ^ (r % 8)) · 16) + (c % 4)·4.
+__device__ __forceinline__ void store_dq(uint8_t* buf, const float (&dq)[32]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = acc_row(i) & 63;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = acc_col(j, 0);
+      *reinterpret_cast<float2*>(
+          buf + (c >> 5) * 8192 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) +
+          (c & 3) * 4) = make_float2(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+    }
+  }
+}
 
 // ----------------------------------------------------------- host side
 // A 4D TMA map over a bf16 [B, N, H, D] tensor with element strides (sb,

@@ -173,6 +173,82 @@ def test_tile_plan_matches_dense_pattern(case):
                            & np.uint64(1)).astype(bool)
                 got[qi * tile:(qi + 1) * tile, kj * tile:(kj + 1) * tile] = blk
         np.testing.assert_array_equal(got, padded)
+    _check_pair_lists(plan, padded, tile)
+
+
+def _check_pair_lists(plan, padded, tile):
+    """The bf16 kernels' pair lists against the dense pattern ``padded``
+    [n·tile, n·tile]: one list per pair of tiles along the first axis
+    (q tiles for ``fwd``, k tiles for ``bwd``), even a pair that holds no
+    pair of the pattern; each the ascending union of its two tiles'
+    active tiles; each half's slot −1 where its tile is full, the words of
+    its tile (in the q-row orientation both kernels read) where mixed,
+    SKIP where empty or past the last tile; the order a permutation of
+    the blocks by non-increasing list length."""
+    n = plan.tile_map.shape[0]
+    m = -(-n // 2)
+    per_tile = padded.reshape(n, tile, n, tile).transpose(0, 2, 1, 3)
+    for kind, tm, tiles in (("fwd", plan.tile_map, per_tile),
+                            ("bwd", plan.tile_map.T,
+                             per_tile.transpose(1, 0, 3, 2))):
+        ptr, ent, order = (getattr(plan, f"{kind}_{x}")
+                           for x in ("ptr", "ent", "order"))
+        assert ptr.shape == (m + 1,) and ptr[0] == 0
+        assert ent.shape == (ptr[-1], 3) and ent.dtype == np.int32
+        lens = np.diff(ptr)
+        assert sorted(order.tolist()) == list(range(m))
+        assert (np.diff(lens[order]) <= 0).all()
+        for blk in range(m):
+            e = ent[ptr[blk]:ptr[blk + 1]]
+            halves = (2 * blk, 2 * blk + 1)
+            union = sorted({int(j) for i in halves if i < n
+                            for j in np.flatnonzero(tm[i])})
+            assert e[:, 0].tolist() == union
+            for j, *slots in e:
+                for i, slot in zip(halves, slots):
+                    if i >= n or tm[i, j] == 0:
+                        assert slot == tbsa.SKIP
+                        continue
+                    assert (slot == -1) == (tm[i, j] == 1) and slot != -2
+                    pairs = tiles[i, j] if kind == "fwd" else tiles[i, j].T
+                    if slot == -1:
+                        assert pairs.all()
+                        continue
+                    words = plan.bits[slot].astype(np.uint64)
+                    got = ((words[:, None] >> np.arange(
+                        tile, dtype=np.uint64)) & np.uint64(1)).astype(bool)
+                    np.testing.assert_array_equal(got, pairs)
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_pair_lists_on_phase8_patterns(case):
+    """The pair lists of each of chip_smoke's nine phase-8 patterns (the
+    shapes the card's checks run at, T ≤ 1024) against the dense pattern,
+    as ``_check_pair_lists`` sets out; the pattern with keys outside has a
+    key block whose list is empty and still present."""
+    cs = _chip_smoke()
+    patterns = cs.bsa_patterns()
+    assert len(patterns) == 9
+    label, T, rows, cols, block = patterns[case]
+    bm, masks = tbsa.pattern_to_block_map(rows, cols, T, block, block)
+    plan = tbsa.tile_plan(bm, masks, T, block, block)
+    n = -(-T // tbsa.TILE)
+    padded = np.zeros((n * tbsa.TILE, n * tbsa.TILE), bool)
+    padded[:T, :T] = _dense(rows, cols, T)
+    _check_pair_lists(plan, padded, tbsa.TILE)
+    if label == "rows and keys outside":
+        assert (np.diff(plan.bwd_ptr) == 0).any()
+        assert (np.diff(plan.fwd_ptr) == 0).any()
 
 
 # inputs for the kernel-level comparisons: (T, D, H, block, rows, cols)
@@ -336,19 +412,89 @@ def test_cuda_request_without_gpu_raises():
 
 
 def test_kernel_source_and_bindings_agree():
-    """K5 and K6 build from one plain-C source (no PyTorch headers), each
-    entry point's ctypes signature has as many arguments as its C
-    declaration, and the source's tile is the plan's."""
+    """K5 and K6 build from one plain-C source (no PyTorch headers) on the
+    f32 tiles and the Hopper tile core, each entry point's ctypes
+    signature has as many arguments as its C declaration (``bsa_bwd``,
+    the bf16 backward, among them), and the source's tile and skip marker
+    are the plan's."""
     src = (_build.CSRC / "block_sparse_attention.cu").read_text()
     assert "torch/" not in src and "extension.h" not in src
     assert '#include "attention_tiles.cuh"' in src
-    header = (_build.CSRC / "attention_tiles.cuh").read_text()
-    assert "torch/" not in header and "mma.sync" in header
+    assert '#include "hopper_attention.cuh"' in src
+    for name in ("attention_tiles.cuh", "hopper_attention.cuh"):
+        header = (_build.CSRC / name).read_text()
+        assert "torch/" not in header and "extension.h" not in header
+    tiles = (_build.CSRC / "attention_tiles.cuh").read_text()
+    assert "std::is_same<T, float>" in tiles     # the f32 kernels' helpers
+    assert "bsa_fwd_kernel<D><<<" in src and "bsa_bwd_kernel<D><<<" in src
     assert f"constexpr int kTile = {tbsa.TILE};" in src
-    for name in ("bsa_fwd", "bsa_bwd_dq", "bsa_bwd_dkv"):
+    assert f"constexpr int kSkip = {tbsa.SKIP};" in src
+    assert set(_build.SIGNATURES["block_sparse_attention"]) == {
+        f"{n}_launch" for n in ("bsa_fwd", "bsa_bwd", "bsa_bwd_dq",
+                                "bsa_bwd_dkv")}
+    for name in ("bsa_fwd", "bsa_bwd", "bsa_bwd_dq", "bsa_bwd_dkv"):
         decl = re.search(r"int %s_launch\(([^)]*)\)" % name, src)
         assert decl, name
         n_c = len(decl.group(1).split(","))
         argtypes, _ = _build.SIGNATURES["block_sparse_attention"][
             name + "_launch"]
         assert len(argtypes) == n_c, name
+
+
+@pytest.mark.parametrize("counted,passes", [
+    ((), False),
+    (("bsa_fwd", "bsa_bwd"), True),
+    (("bsa_fwd", "bsa_bwd", "bsa_bwd_dq", "bsa_bwd_dkv"), False),
+    (("bsa_fwd",), False)])
+def test_chip_smoke_launch_gate(monkeypatch, counted, passes):
+    """chip_smoke's phase-8 gate on the Longformer path's launches:
+    ``bsa_fwd`` and ``bsa_bwd`` once a call, K6's f32 kernels never. On
+    the CPU the plain versions run; here each call counts as the kernels
+    in ``counted`` would (the forward ``bsa_fwd``, the backward the
+    rest), so that the gate sees each mix at a small shape."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "BSA_SHAPE", (1, 2, 256, 64))
+    monkeypatch.setattr(cs, "LONGFORMER", (16, 4))
+    fwd, bwd = tbsa.bsa_forward, tbsa.bsa_backward
+
+    def counted_fwd(*args):
+        tbsa.LAUNCHES["bsa_fwd"] += "bsa_fwd" in counted
+        return fwd(*args)
+
+    def counted_bwd(*args):
+        for name in counted[1:]:
+            tbsa.LAUNCHES[name] += 1
+        return bwd(*args)
+
+    monkeypatch.setattr(tbsa, "bsa_forward", counted_fwd)
+    monkeypatch.setattr(tbsa, "bsa_backward", counted_bwd)
+    tbsa._get_pattern.cache_clear()        # the path counts one compile
+    if passes:
+        launches, errs, *_ = cs.bsa_path(device="cpu")
+        assert launches == {"bsa_fwd": 2, "bsa_bwd": 2, "bsa_bwd_dq": 0,
+                            "bsa_bwd_dkv": 0}
+        assert set(errs) == {"out", "dq", "dk", "dv"}
+    else:
+        with pytest.raises(RuntimeError, match="launches"):
+            cs.bsa_path(device="cpu")
+    tbsa.LAUNCHES.clear()
+
+
+def test_chip_smoke_names_the_pallas_kernels():
+    """The kernels line names what each kernel replaces: ``bsa_fwd`` the
+    forward Pallas kernel, ``bsa_bwd`` both backward ones (dq :192 and
+    dkv :254); each file:line is the kernel's ``def`` in the JAX source
+    (read as text). Every replacing kernel has a path note."""
+    import pathlib
+    cs = _chip_smoke()
+    root = pathlib.Path(__file__).resolve().parents[1]
+    assert set(cs.BSA_REPLACES) == {"bsa_fwd", "bsa_bwd"}
+    assert set(cs.BSA_F32) == {"bsa_bwd_dq", "bsa_bwd_dkv"}
+    for where, fn in ((cs.BSA_REPLACES["bsa_fwd"], "def kernel("),
+                      (cs.BSA_REPLACES["bsa_bwd"], "def dq_kernel("),
+                      (cs.BSA_REPLACES_ALSO["bsa_bwd"], "def dkv_kernel(")):
+        path, line = where.rsplit(":", 1)
+        assert path == "paddle_tpu/ops/block_sparse_attention.py"
+        src = (root / path).read_text().splitlines()
+        assert src[int(line) - 1].strip().startswith(fn), where
+    assert all(name in cs.PATHS for name in cs.BSA_REPLACES)

@@ -154,3 +154,65 @@ def test_variant_tool_plants_on_the_current_source(tools):
     for name, variant in var.VARIANTS.items():
         if variant is not None:
             assert fc.plant(text, variant) != text, name
+
+
+def _kernel_span(src, signature, end):
+    start = src.index(signature)
+    return start, src.index(end, start)
+
+
+def test_block_sparse_faults_land_in_their_kernels(tools):
+    """The bf16 block-sparse faults are planted inside the kernel they
+    name (``bsa_bwd_kernel``, and ``bsa_fwd_kernel`` for the forward's
+    and the order's) and held to bf16 and the outputs they must fail
+    (``empty_no_store`` to dk and dv of the pattern whose key block has
+    an empty list); ``ds_unscaled`` sits in ``ds_of``, which both
+    backwards call, and must fail both dtypes; the f32 faults are held to
+    f32."""
+    mods, fc = tools
+    bsa = mods["bsa_fault_check"].FAULTS
+    src = (CSRC / SOURCES["bsa_fault_check"]).read_text()
+    bwd = _kernel_span(src, "bsa_bwd_kernel(const __grid_constant__",
+                       "bsa_bwd_prep_kernel(")
+    fwd = _kernel_span(src, "bsa_fwd_kernel(const __grid_constant__",
+                       "bsa_bwd_kernel(const __grid_constant__")
+    for name, spans in (("bwd_last_dq", [bwd]), ("bwd_mixed_as_full", [bwd]),
+                        ("empty_no_store", [bwd]),
+                        ("fwd_mixed_as_full", [fwd]),
+                        ("order_skip", [fwd, bwd])):
+        fault = bsa[name]
+        assert fault.must_fail == ("bfloat16",) and fault.cases, name
+        at = _site_offsets(src, fault)
+        assert len(at) == len(spans), name
+        assert all(s < a < e for a, (s, e) in zip(at, spans)), name
+    assert bsa["empty_no_store"].every_case
+    assert set(bsa["empty_no_store"].cases) == {"T=256 dk", "T=256 dv"}
+    assert bsa["order_skip"].every_case
+    ds = bsa["ds_unscaled"]
+    assert ds.must_fail == () and set(ds.cases) == {"dq", "dk"}
+    assert "ds_of(" in src[bwd[0]:bwd[1]]
+    for name in ("mixed_as_full", "last_k_tile", "dkv_q_tile"):
+        assert bsa[name].must_fail == ("float32",), name
+    assert len(bsa) == 10
+
+
+def test_bsa_variant_tool_plants_on_the_current_source(tools):
+    """``tools/bsa_variants.py``'s source variants each plant in the
+    current ``block_sparse_attention.cu``, inside ``bsa_bwd_kernel`` or
+    its launcher (a stale anchor would time the base kernels under a
+    variant's name), and its plan variants are the two it documents."""
+    _, fc = tools
+    sys.path.insert(0, str(TOOLS))
+    try:
+        var = importlib.import_module("bsa_variants")
+    finally:
+        sys.path.remove(str(TOOLS))
+    text = (CSRC / "block_sparse_attention.cu").read_text()
+    start = text.index("bsa_bwd_kernel(const __grid_constant__")
+    assert var.VARIANTS["base"] is None and len(var.VARIANTS) > 1
+    for name, variant in var.VARIANTS.items():
+        if variant is not None:
+            assert fc.plant(text, variant) != text, name
+            assert all(at > start for at in _site_offsets(
+                text, fc._as_fault(variant))), name
+    assert var.PLAN_VARIANTS == ("reversed", "pole_cut")

@@ -1,4 +1,6 @@
-"""The planted-fault harness of ``tools/*_fault_check.py``, on one GPU.
+"""The planted-fault harness of ``tools/*_fault_check.py`` (and, through
+``time_variants``, the timing harness of ``tools/*_variants.py``), on one
+GPU.
 
 Each entry script names a kernel source under
 ``paddle_tpu_torch/ops/csrc/``, a table of faults and a ``measure``
@@ -101,6 +103,50 @@ def group_caught(spec, cases):
         return all(any(k in c for c in hit) for k in spec.cases)
     return any(not spec.cases or any(k in c for k in spec.cases)
                for c in hit)
+
+
+def time_variants(script, source, variants, runs, describe):
+    """The timing harness of ``tools/*_variants.py``: plants each of
+    ``variants`` ({name: fault or None}) in a temporary copy as ``main``
+    plants faults (every anchor checked first), builds every copy's
+    ``source`` at once, then for each ``(name, copy, args)`` of ``runs``
+    runs ``script --measure *args`` in the copy of variant ``copy`` and
+    prints ``[name]`` and ``describe(result)``. Returns {name: [result of
+    each of its runs]}."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(script)))
+    with open(os.path.join(root, "paddle_tpu_torch", "ops", "csrc",
+                           source)) as f:
+        text = f.read()
+    for variant in variants.values():
+        if variant is not None:
+            plant(text, variant)
+    copies = {name: planted_copy(root, source, v)
+              for name, v in variants.items()}
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); from "
+             "paddle_tpu_torch.ops import _build; "
+             f"_build.build_all([{os.path.splitext(source)[0]!r}])")
+    try:
+        procs = [subprocess.Popen([sys.executable, "-c", build, tmp])
+                 for tmp in copies.values()]
+        if any(p.wait() for p in procs):
+            raise RuntimeError("a variant failed to build")
+        table = {}
+        for name, copy, args in runs:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(copies[copy], "tools",
+                                              os.path.basename(script)),
+                 "--measure", *args], capture_output=True, text=True,
+                timeout=900)
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:], file=sys.stderr)
+                raise RuntimeError(f"{name}: the measuring run failed")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            table.setdefault(name, []).append(res)
+            print(f"[{name}] {describe(res)}", flush=True)
+    finally:
+        for tmp in copies.values():
+            shutil.rmtree(tmp, ignore_errors=True)
+    return table
 
 
 def main(script, source, faults, measure):

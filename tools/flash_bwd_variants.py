@@ -26,10 +26,7 @@ from __future__ import annotations
 
 import json
 import os
-import shutil
-import subprocess
 import sys
-import tempfile
 
 import fault_check
 
@@ -92,40 +89,11 @@ def main():
     if not torch.cuda.is_available():
         print("flash_bwd_variants: no CUDA device", file=sys.stderr)
         return 2
-    src = os.path.join(root, "paddle_tpu_torch", "ops", "csrc",
-                       "flash_attention.cu")
-    with open(src) as f:
-        text = f.read()
-    for fault in VARIANTS.values():        # every anchor, before any build
-        if fault is not None:
-            fault_check.plant(text, fault)
-    copies = {name: fault_check.planted_copy(root, "flash_attention.cu", v)
-              for name, v in VARIANTS.items()}
-    build = ("import sys; sys.path.insert(0, sys.argv[1]); from "
-             "paddle_tpu_torch.ops import _build; "
-             "_build.build_all(['flash_attention'])")
-    try:
-        procs = [subprocess.Popen([sys.executable, "-c", build, tmp])
-                 for tmp in copies.values()]
-        if any(p.wait() for p in procs):
-            raise RuntimeError("a variant failed to build")
-        table = {}
-        for name in [*VARIANTS, "base"]:
-            tmp = copies[name]
-            proc = subprocess.run(
-                [sys.executable, os.path.join(tmp, "tools",
-                                              os.path.basename(__file__)),
-                 "--measure"], capture_output=True, text=True, timeout=900)
-            if proc.returncode != 0:
-                print(proc.stderr[-4000:], file=sys.stderr)
-                raise RuntimeError(f"{name}: the measuring run failed")
-            res = json.loads(proc.stdout.strip().splitlines()[-1])
-            table.setdefault(name, []).append(res)
-            print(f"[{name}] causal {res['True']:.4f} ms, non-causal "
-                  f"{res['False']:.4f} ms", flush=True)
-    finally:
-        for tmp in copies.values():
-            shutil.rmtree(tmp, ignore_errors=True)
+    table = fault_check.time_variants(
+        __file__, "flash_attention.cu", VARIANTS,
+        [(name, name, ()) for name in [*VARIANTS, "base"]],
+        lambda r: f"causal {r['True']:.4f} ms, non-causal "
+                  f"{r['False']:.4f} ms")
     print(json.dumps(table))
     return 0
 

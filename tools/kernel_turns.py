@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K2's bf16 backward and rpa_kernel's decode of this tree against another
-tree's, in turns on one GPU.
+"""K2's bf16 backward, rpa_kernel's decode and K5/K6 (block-sparse
+attention) of this tree against another tree's, in turns on one GPU.
 
     python3 tools/kernel_turns.py OTHER_TREE
 
@@ -19,7 +19,13 @@ device time only), the calls the training and serving paths make:
 * ``ragged_paged_attention`` at decode (one query row a slot; K3 and K4
   on ``rpa_kernel``) over bf16, int8 and fp8 pages at B 1 and 4 and
   kv_len 128, 1024 and 4096 (H=KV=32, hd 128, page size 16, a table that
-  reaches kv_len).
+  reaches kv_len);
+* ``block_sparse_attention._bsa_fwd`` (K5) and the whole bf16
+  ``_bsa_bwd`` call (K6: dq, dk and dv from out and lse, delta and any
+  scratch included) at ``sparse.fused_attention``'s shape in phase 8
+  (B=1, H=32, T=8192, D=128, bf16, the [B, T, H, D] views of [B, H, T,
+  D] tensors) under its Longformer pattern (window ±256, 64 global
+  tokens, blocks of 512), the pattern compiled once before timing.
 
 The inputs come from ``chip_smoke``'s seeded generators, the same in
 every process. It prints one line per case with the four times and the
@@ -71,6 +77,7 @@ def measure(tree):
         res[f"K2 bf16 backward causal={causal}"] = cs.time_ms(
             lambda: fa._flash_bwd(q, k, v, out, lse, do, causal, scale))
     del q, k, v, do, out, lse
+    res.update(measure_bsa(cs))
     rng = np.random.default_rng(SEED + 16)
     for B in DECODE["B"]:
         for kv_len in DECODE["kv_len"]:
@@ -86,6 +93,29 @@ def measure(tree):
                 res[f"decode {pages} B={B} kv_len={kv_len}"] = cs.time_ms(
                     lambda: ra.ragged_paged_attention(*case, **kw), iters=20)
     return res
+
+
+def measure_bsa(cs):
+    """{case: ms} of K5 and K6 at phase 8's shape and pattern."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, H, T, D = cs.BSA_SHAPE
+    rows, cols = cs.longformer_pattern(T, *cs.LONGFORMER)
+    pattern = bsa.compile_pattern(rows, cols, T, 512, 512, "cuda")
+    rng = np.random.default_rng(SEED + 10)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, H, T, D), np.float32)).to("cuda", torch.bfloat16).transpose(1, 2)
+        for _ in range(4))
+    scale = fa._scale(D, None)
+    out, lse = bsa._bsa_fwd(q, k, v, pattern, scale)
+    return {
+        "K5 bf16 block-sparse forward": cs.time_ms(
+            lambda: bsa._bsa_fwd(q, k, v, pattern, scale)),
+        "K6 bf16 block-sparse backward": cs.time_ms(
+            lambda: bsa._bsa_bwd(q, k, v, out, lse, do, pattern, scale)),
+    }
 
 
 def main():

@@ -16,7 +16,9 @@ the repository. Phases, each failing the run when its check fails:
               at D 64 and 128), against torch.matmul in f32, exact on
               integer inputs; then the ragged paged-attention
               kernel (K3) against its plain PyTorch version on the card:
-              decode, ragged prefill, suffix and q_len=0 rows, groups 1
+              decode, ragged prefill, suffix, speculative verify (q_lens
+              5, 1, 0, 3 at kv_lens that are not page-aligned; in bf16
+              on both kernels) and q_len=0 rows, groups 1
               and 4, f32 and bf16 pools, dead pool rows and the scratch
               page filled with NaN; the quantized kernel (K4) the same way
               over int8 and fp8 pools (head dims 128, 64 and 16), dead
@@ -24,7 +26,7 @@ the repository. Phases, each failing the run when its check fails:
               tile path (``rpa_tile_kernel``, which bf16 prefill and
               suffix rows take) over bf16, int8 and fp8 pages at page
               sizes 4, 16, 32 and 64, groups 1 and 4, head dims 128 and 64,
-              suffix rows from 2 rows up; every output
+              suffix rows from 2 rows up and verify rows; every output
               element within its own bound
               (``ragged_attention.tolerance``);
 4. serving  — greedy Llama-2-7B (full width, random weights from a seed,
@@ -47,8 +49,10 @@ the repository. Phases, each failing the run when its check fails:
               K/V (``f32_pool_check``);
 5. times    — K3 and K4 (int8 and fp8) at the serving path's decode
               (rpa_kernel, with its chunk count) and prefill
-              (rpa_tile_kernel, and rpa_kernel at the same shape) shapes
-              beside their byte bounds, their plain versions and
+              (rpa_tile_kernel, and rpa_kernel at the same shape) shapes,
+              and a speculative verify's (B=4, 5 rows a slot, kv_len
+              605; bf16 and int8 pages), beside their bounds, their
+              plain versions and
               scaled_dot_product_attention (a yardstick the port never
               calls; for K4 over K/V dequantized beforehand); both
               kernels at suffix rows of 2 to 128 rows, for the dispatch's
@@ -87,9 +91,37 @@ the repository. Phases, each failing the run when its check fails:
               call, the f32 kernels never, one compile, out/dq/dk/dv row
               by row against the plain versions; and the kernels' times
               beside their bounds, the plain versions, SDPA with the dense
-              mask and FlexAttention with the pattern's block mask.
+              mask and FlexAttention with the pattern's block mask;
+9. prefix and speculative serving — Llama-2-7B (full width and depth,
+              random weights, seed 0) through ContinuousBatcher with
+              ``prefix_cache_pages=64``: 8 requests share a 384-token
+              system prompt (24 pages) with suffixes of 16–120 tokens,
+              2 are exactly it (full-prefix resumes), over bf16 pages, int8
+              and fp8 pages in the bf16 pool's byte budget, and f32; and
+              the same traffic unshared, for the prefill rows sharing
+              saves. Then 8 requests without a shared prefix with
+              ``spec_decode=True, spec_k=4``: f32 with the self-draft (32
+              layers), bf16 plain, with the self-draft and with a
+              16-layer draft, int8 pages with the 16-layer draft. Every
+              pool is NaN-poisoned first. Each run: every request
+              complete, every token within its bound of a teacher-forced
+              dense forward (f32: 1e-3 of the best logit; bf16: phase
+              4's delta), K3/K4 launched once per layer per decode step,
+              prefill burst and speculative step (one verify launch per
+              layer), the pool drained but for the prefix index's pages
+              (each at refcount 1); with the index ≥ 7 hits, ≥ 1 resume,
+              ≥ 1 copy-on-write, the system prompt's pages bitwise as
+              their prefill wrote them, and in bf16 rpa_tile_kernel
+              launched by a burst with prefill_start > 0; with a draft
+              speculative steps run, no slot keeps a page past its
+              position after one (the rewind), K1 launched per draft
+              layer per draft prefill, and the f32 self-draft's accepted
+              share ≥ 0.95. Prints tokens/s and prefill rows. The
+              planted faults of tools/serve_fault_check.py fail these
+              checks.
 
-The last lines are the kernels' JSON record, the card line, and
+The last lines are the kernels' JSON record (each kernel's launches by
+phase 9's serves as ``launches_prefix_spec``), the card line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -306,17 +338,19 @@ def bwd_wgmma_check(device="cuda"):
     return res
 
 
-def rpa_compare(args, ps, scales=()):
+def rpa_compare(args, ps, scales=(), tile=None):
     """K3 (or K4 with ``scales`` = (k_scale, v_scale)) and its plain
     version on one case: (kernel output, plain output, max_abs_err, worst
     share of the bound ``ra.tolerance``: per row in f32, per element in
-    bf16)."""
+    bf16). ``tile`` picks the kernel (True: rpa_tile_kernel, False:
+    rpa_kernel); None leaves it to the dispatch."""
     import torch
     from paddle_tpu_torch.ops import ragged_attention as ra
     kw = {"page_size": ps}
     if scales:
         kw.update(k_scale=scales[0], v_scale=scales[1])
-    out = ra.ragged_paged_attention(*args, **kw)
+    out = ra.ragged_paged_attention(*args, **kw) if tile is None else \
+        ra._launch(*args, ps, *scales, tile=tile)
     ref = ra.ragged_paged_attention_reference(*args, **kw)
     diff = (out.float() - ref.float()).abs()
     bound = ra.tolerance(*args, **kw)
@@ -325,12 +359,13 @@ def rpa_compare(args, ps, scales=()):
     return out, ref, float(diff.max()), share
 
 
-def rpa_check(name, args, ps, scales=(), tag="K3"):
-    """K3/K4 against its plain version on one case: finite outputs, q_len
-    = 0 slots all zeros, and every output element within its bound.
-    Returns (max_abs_err, worst share of the bound)."""
+def rpa_check(name, args, ps, scales=(), tag="K3", tile=None):
+    """K3/K4 against its plain version on one case (``tile`` as in
+    ``rpa_compare``): finite outputs, q_len = 0 slots all zeros, and every
+    output element within its bound. Returns (max_abs_err, worst share of
+    the bound)."""
     import torch
-    out, ref, err, share = rpa_compare(args, ps, scales)
+    out, ref, err, share = rpa_compare(args, ps, scales, tile)
     check(bool(torch.isfinite(out).all()), f"{name}: kernel output not "
           "finite")
     check(bool(torch.isfinite(ref).all()), f"{name}: plain output not finite")
@@ -344,9 +379,16 @@ def rpa_check(name, args, ps, scales=(), tag="K3"):
     return err, share
 
 
+# a speculative verify's rows: q_len k+1 = 5, a slot catching up (1), an
+# idle slot (0) and a short segment (3), at kv_lens that are not
+# page-aligned (start + q_len)
+VERIFY_CASE = ([5, 1, 0, 3], [605, 38, 77, 253])
+
+
 def kernel_cases(device="cuda"):
-    """K3 against its plain version: decode, ragged prefill, suffix and
-    q_len=0 rows, groups 1 and 4, f32 and bf16 pools, each output element
+    """K3 against its plain version: decode, ragged prefill, suffix,
+    verify (``VERIFY_CASE``, in bf16 on both kernels) and q_len=0 rows,
+    groups 1 and 4, f32 and bf16 pools, each output element
     within ``ra.tolerance`` (per row in f32, per element in bf16), and
     f32 outputs also within ``ra.F32_TOL`` absolute, as K3's check held
     them before it went per element. Returns the worst share of the
@@ -365,6 +407,7 @@ def kernel_cases(device="cuda"):
             }
             sq = rng.integers(2, 65, 4)
             kinds["suffix"] = (sq, sq + rng.integers(1, 900, 4))
+            kinds["verify"] = VERIFY_CASE
             for kind, (ql, kl) in kinds.items():
                 args = make_case(rng, ql, kl, H, KV, hd, ps, max_pages,
                                  dtype, device)
@@ -373,6 +416,12 @@ def kernel_cases(device="cuda"):
                 check(dtype != torch.float32 or err <= ra.F32_TOL,
                       f"{name}: max_abs_err {err} > {ra.F32_TOL}")
                 worst = max(worst, share)
+                if kind == "verify" and dtype == torch.bfloat16:
+                    # the dispatch sends these rows to the tile kernel;
+                    # rpa_kernel computes the same function
+                    _, share = rpa_check(name + " rpa_kernel", args, ps,
+                                         tile=False)
+                    worst = max(worst, share)
     print(f"  K3: worst share of the bound {worst:.3f}", flush=True)
     return worst
 
@@ -383,7 +432,8 @@ def tile_cases(device="cuda"):
     (and 64), page sizes 4 (K3's cp.async gather), 16, 32 and 64 (its
     TMA gather), groups 1 and 4, ragged prefill
     with a q_len=0 slot, suffix rows of 2 to 64 rows (the smallest the
-    dispatch sends) and of 65 to 520, over bf16 pages (K3) and int8 and
+    dispatch sends) and of 65 to 520, a speculative verify's rows
+    (``VERIFY_CASE``), over bf16 pages (K3) and int8 and
     fp8 pages (K4); every dead row NaN, dead payloads fp8 NaN / int8
     −128, dead scales NaN. Each case must launch the tile kernel.
     Returns the worst share of the bound."""
@@ -399,7 +449,8 @@ def tile_cases(device="cuda"):
                      "suffix short": ([2, 17, 2, 64 // groups],
                                       [700, 18, 90, 900]),
                      "suffix long": ([130, 65, 7, 100],
-                                     [1000, 65, 300, 613])}
+                                     [1000, 65, 300, 613]),
+                     "verify": VERIFY_CASE}
             if hd == 64 and ps != 32:
                 kinds.pop("suffix long")
             for kind, (ql, kl) in kinds.items():
@@ -448,9 +499,10 @@ def quantize_case(args, mode):
 
 def quant_kernel_cases(device="cuda"):
     """K4 against its plain version: int8 and fp8 payloads, f32 and bf16
-    models, decode, ragged prefill, suffix and q_len=0 rows, groups 1 and
-    4, at the serving shape's head dim 128 and page size 16, then head
-    dims 64 and 16. Returns the worst share of the bound."""
+    models, decode, ragged prefill, suffix, verify (``VERIFY_CASE``, in
+    bf16 on both kernels) and q_len=0 rows, groups 1 and 4, at the serving
+    shape's head dim 128 and page size 16, then head dims 64 and 16.
+    Returns the worst share of the bound."""
     import torch
     rng = np.random.default_rng(SEED + 7)
     ps, max_pages = 16, 64
@@ -464,8 +516,10 @@ def quant_kernel_cases(device="cuda"):
                          "prefill": ([512, 300, 0, 37], [512, 300, 77, 37])}
                 sq = rng.integers(2, 65, 4)
                 kinds["suffix"] = (sq, sq + rng.integers(1, 900, 4))
+                kinds["verify"] = VERIFY_CASE
                 if hd != 128:
                     kinds.pop("suffix")
+                    kinds.pop("verify")
                 for kind, (ql, kl) in kinds.items():
                     args = make_case(rng, ql, kl, H, KV, hd, ps, max_pages,
                                      dtype, device)
@@ -474,6 +528,10 @@ def quant_kernel_cases(device="cuda"):
                     qa = quantize_case(args, mode)
                     _, share = rpa_check(name, qa[:6], ps, qa[6:], "K4")
                     worst = max(worst, share)
+                    if kind == "verify" and dtype == torch.bfloat16:
+                        _, share = rpa_check(name + " rpa_kernel", qa[:6],
+                                             ps, qa[6:], "K4", tile=False)
+                        worst = max(worst, share)
     print(f"  K4: worst share of the bound {worst:.3f}", flush=True)
     return worst
 
@@ -659,27 +717,16 @@ def f32_serving_check(cfg32, params32, reqs, device="cuda"):
     summation order only (~1e-5 on logits of order 5), so the emitted
     token's dense logit must be within F32_DELTA = 1e-3 of the maximum: a
     masking, paging or indexing fault moves logits by order 1."""
-    import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
-    from paddle_tpu_torch.models.llama import llama_forward
     engine = ContinuousBatcher(cfg32, params32, device=device,
                                **SERVE_GEOMETRY)
     rids = [engine.add_request(p, m) for p, m in reqs[:4]]
     out = engine.run()
-    worst, agree, total = 0.0, 0, 0
-    for rid, (prompt, m) in zip(rids, reqs):
-        toks = out[rid]
-        check(len(toks) == m, f"f32 request {rid}: {len(toks)} of {m} tokens")
-        with torch.no_grad():
-            lf = llama_forward(params32, torch.tensor([prompt + toks],
-                                                      device=device),
-                               cfg32)[0]
-        lf = lf[len(prompt) - 1:len(prompt) - 1 + len(toks)]
-        gap = lf.max(dim=-1).values - lf.gather(
-            1, torch.tensor(toks, device=device)[:, None])[:, 0]
-        worst = max(worst, float(gap.max()))
-        agree += int((gap == 0).sum())
-        total += len(toks)
+    outs = [out[rid] for rid in rids]
+    for rid, toks, (_, m) in zip(rids, outs, reqs):
+        check(len(toks) == m, f"f32 request {rid}: {len(toks)} of {m} "
+              "tokens")
+    worst, agree, total = f32_gaps(cfg32, params32, reqs, outs, device)
     print(f"[serve] f32 engine vs dense f32: max gap {worst:.3e} (delta "
           f"{F32_DELTA}), argmax agree {agree}/{total}", flush=True)
     check(worst <= F32_DELTA, f"f32 serving: emitted token {worst} below "
@@ -893,6 +940,7 @@ def timed_shape(kind, B, q_len, kv_len, H, KV, hd, ps, max_pages,
     table and lengths; and 4·hd flops per attended (row, column) pair."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
     from paddle_tpu_torch.ops import ragged_attention as ra
     from paddle_tpu_torch.quant.codec import dequantize_lastdim
     rng = np.random.default_rng(SEED + 2)
@@ -929,8 +977,12 @@ def timed_shape(kind, B, q_len, kv_len, H, KV, hd, ps, max_pages,
     kc, vc = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     qs = q.transpose(1, 2).contiguous()
     gqa = {"enable_gqa": True} if H != KV else {}
+    # causal rows aligned bottom-right, as the kernels' (is_causal aligns
+    # them top-left, which is the same only when q_len == kv_len)
+    mask = {"is_causal": q_len > 1} if q_len in (1, kv_len) else \
+        {"attn_mask": causal_lower_right(q_len, kv_len)}
     sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, kc, vc, is_causal=q_len > 1, **gqa))
+        qs, kc, vc, **mask, **gqa))
     item = 2
     row_head = kp.element_size() * hd + (4 if kv_dtype else 0)
     nbytes = item * 2 * B * q_len * H * hd + 2 * B * kv_len * KV * row_head \
@@ -1591,6 +1643,9 @@ def serving_phases(cfg):
         cfg.head_dim
     decode = timed_shape("decode", 4, 1, 1024, H, KV, hd, 16, 64)
     prefill = timed_shape("prefill", 4, 512, 512, H, KV, hd, 16, 64)
+    # a speculative verify at k = 4: 5 query rows a slot, kv not aligned
+    verify = {kv: timed_shape("verify", 4, 5, 605, H, KV, hd, 16, 64, kv)
+              for kv in (None, "int8")}
     qtimes = {kv: (timed_shape("decode", 4, 1, 1024, H, KV, hd, 16, 64, kv),
                    timed_shape("prefill", 4, 512, 512, H, KV, hd, 16, 64, kv))
               for kv in ("int8", "fp8")}
@@ -1620,7 +1675,7 @@ def serving_phases(cfg):
                "path": "rpa_tile_kernel: bf16 prefill and suffix rows",
                "launches": launches["tile"], **{k: prefill[k] for k in keys},
                "rpa_kernel_ms": prefill["rpa_kernel_ms"],
-               "crossover": cross}
+               "crossover": cross, "verify": verify[None]}
     dec8, pre8 = qtimes["int8"]
     k4 = {"name": "ragged_paged_attention_quant", "route": "cuda",
           "source": src, "replaces": "paddle_tpu/ops/ragged_attention.py:194",
@@ -1652,7 +1707,7 @@ def serving_phases(cfg):
                **{k: pre8[k] for k in keys},
                "sdpa_on_dequantized_ms": pre8["sdpa_on_dequantized_ms"],
                "rpa_kernel_ms": pre8["rpa_kernel_ms"],
-               "fp8": qtimes["fp8"][1]}
+               "fp8": qtimes["fp8"][1], "verify": verify["int8"]}
     return [k3, k3_tile, k4, k4_tile]
 
 
@@ -2065,6 +2120,440 @@ def sparse_phase(device="cuda"):
     return records
 
 
+# --------------------------------------------------------------- phase 9
+# the shared system prompt of the prefix leg: 24 full pages of 16 rows
+PREFIX_SYS = 384
+PREFIX_CACHE_PAGES = 64
+PREFIX_MIN_HITS = 7
+SPEC_K = 4
+SHALLOW_DRAFT = 16          # the truncated draft's layers (of 32)
+MIN_ACCEPTANCE = 0.95       # the f32 self-draft's accepted share
+
+
+def poison_pool(engine):
+    """Fill every page of the engine's pool (payload and scales, the
+    scratch page too) with NaN — fp8 payloads with its NaN code, int8
+    with −128 beside a NaN scale — so that a row read before it was
+    written (say, a copy-on-write of an unwritten page) cannot pass as 0.
+    The kernels and the plain version never read a row at or past a
+    slot's kv_len, and every row below it is written before it is read."""
+    import torch
+    for bufs in engine._cache.values():
+        for buf in bufs:
+            if buf.dtype == torch.int8:
+                buf.fill_(-128)
+            elif buf.dtype == torch.float8_e4m3fn:
+                buf.view(torch.uint8).fill_(0x7F)
+            else:
+                buf.fill_(float("nan"))
+
+
+def drive(engine, waves, after_first_step=None):
+    """Serve ``waves`` of (prompt, budget) requests on ``engine`` to the
+    end, wave i+1 added after one more step (``after_first_step`` runs
+    right after the first). Each step is recorded: whether it was a
+    speculative step, whether it carried a suffix prefill (a prefix hit
+    with prefill_start > 0), its K3/K4 launches by kernel, and after a
+    speculative step the most pages a live slot maps beyond
+    pages_for(pos) (0 once the rewind freed the rejected tail). Returns
+    (requests in order, results in order, seconds, step records, K1
+    launches of the whole drive)."""
+    import collections
+    from paddle_tpu_torch.inference.paging import pages_for
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    reqs, rids, steps, finished = [], [], [], {}
+
+    def step():
+        st0, l0 = dict(engine.stats), collections.Counter(ra.LAUNCHES)
+        engine.step()
+        st = engine.stats
+
+        def d(key):
+            return st.get(key, 0) - st0.get(key, 0)
+
+        rec = {"spec": d("spec_steps") > 0,
+               "suffix": d("prefix_hits") > d("prefix_resumes")
+               and d("prefill_bursts") > 0,
+               "launches": collections.Counter(ra.LAUNCHES) - l0,
+               "surplus": 0}
+        if rec["spec"]:
+            rec["surplus"] = max(
+                (len(engine._page_tbl[b])
+                 - pages_for(int(engine._pos[b]), engine._ps)
+                 for b, r in enumerate(engine._slot_req) if r is not None),
+                default=0)
+        steps.append(rec)
+        finished.update(engine.take_finished())
+        if len(steps) == 1 and after_first_step is not None:
+            after_first_step()
+
+    k1 = fa.LAUNCHES["flash_fwd"]
+    t0 = time.perf_counter()
+    for i, wave in enumerate(waves):
+        if i:
+            step()
+        reqs += wave
+        rids += [engine.add_request(p, m) for p, m in wave]
+    while engine.pending:
+        step()
+    seconds = time.perf_counter() - t0
+    return reqs, [finished.get(r) for r in rids], seconds, steps, \
+        fa.LAUNCHES["flash_fwd"] - k1
+
+
+def exact(ok):
+    """The share of the bound of an exact check: 0 when it holds, inf when
+    it does not."""
+    return 0.0 if ok else float("inf")
+
+
+def f32_gaps(cfg32, params32, reqs, outs, device="cuda"):
+    """Every emitted token (``outs``: each request's token list, or None)
+    against a teacher-forced dense f32 forward of the same weights over
+    prompt + emitted tokens: (the largest gap between the forward's best
+    logit and the emitted token's, tokens whose logit is the best,
+    tokens)."""
+    import torch
+    from paddle_tpu_torch.models.llama import llama_forward
+    worst, agree, total = 0.0, 0, 0
+    for (prompt, _), toks in zip(reqs, outs):
+        if not toks:
+            continue
+        with torch.no_grad():
+            lf = llama_forward(params32, torch.tensor([prompt + toks],
+                                                      device=device),
+                               cfg32)[0]
+        lf = lf[len(prompt) - 1:len(prompt) - 1 + len(toks)]
+        gap = lf.max(dim=-1).values - lf.gather(
+            1, torch.tensor(toks, device=device)[:, None])[:, 0]
+        worst = max(worst, float(gap.max()))
+        agree += int((gap == 0).sum())
+        total += len(toks)
+    return worst, agree, total
+
+
+def tokens_case(cfg, params, cfg32, params32, reqs, results, kv_dtype,
+                device="cuda"):
+    """[worst gap over its bound, the same as a share, note]: an f32 engine
+    within F32_DELTA of the dense f32 forward (``f32_gaps``); a bf16
+    engine within phase 4's DELTA of the teacher-forced dense bf16 forward
+    (K/V through the page codec for quantized pages: ``teacher_forced``,
+    which also fails the run past it)."""
+    import torch
+    if cfg.dtype == torch.float32:
+        gap, agree, total = f32_gaps(cfg32, params32, reqs,
+                                     [r and r.out for r in results], device)
+        return [gap, gap / F32_DELTA,
+                f"max gap vs dense f32 (delta {F32_DELTA}), argmax agree "
+                f"{agree}/{total}"]
+    tf = teacher_forced(cfg, params, cfg32, params32, reqs, results, device,
+                        kv_dtype=kv_dtype)
+    return [tf["gap_over_delta"], tf["gap_over_delta"],
+            f"worst gap over delta vs teacher-forced dense bf16, eps "
+            f"{tf['eps']:.4f}, argmax agree {tf['argmax_agree']}/"
+            f"{tf['tokens']}"]
+
+
+def engine_cases(engine, reqs, results, steps):
+    """The checks every phase-9 run must pass, as {case: [value, share of
+    its bound, note]}: every request complete with its budget; K3 (K4 over
+    quantized pages) launched once per layer per decode step, per
+    prefill-carrying burst and per speculative step, across its two
+    kernels, and the other pool type's kernels never; each speculative
+    step one launch per layer (its verify); the pool drained but for the
+    prefix index's pages, each held by the index alone."""
+    quant = engine._kv_dtype is not None
+    mine = "ragged_paged_attention" + ("_quant" if quant else "")
+    L = engine._cfg.num_hidden_layers
+    st = engine.stats
+    ours = [sum(n for k, n in s["launches"].items()
+                if k in (mine, mine + "_tile")) for s in steps]
+    total = sum(sum(s["launches"].values()) for s in steps)
+    expect = L * (st["decode_steps"] + st["prefill_bursts"]
+                  + st.get("spec_steps", 0))
+    verify = [n for n, s in zip(ours, steps) if s["spec"]]
+    complete = all(r is not None and r.done and len(r.out) == m
+                   for r, (_, m) in zip(results, reqs))
+    held = [] if engine._prefix is None else \
+        engine._prefix.cached_page_ids()
+    pool_ok = engine.pages_in_use == len(held) and all(
+        engine._alloc.refcount(p) == 1 for p in held)
+    cases = {
+        "complete": [sum(len(r.out) for r in results if r is not None),
+                     exact(complete), "tokens, every budget met"],
+        "launches": [sum(ours), exact(sum(ours) == expect == total),
+                     f"expected {expect}; the other pool type's kernels "
+                     f"{total - sum(ours)}"],
+        "pool": [engine.pages_in_use, exact(pool_ok),
+                 f"pages in use after the drain; the index holds "
+                 f"{len(held)}, each at refcount 1"]}
+    if engine._spec is not None:
+        cases["verify launches"] = [
+            max(verify, default=0), exact(all(n == L for n in verify)),
+            f"per speculative step ({len(verify)} steps), one per layer"]
+    return cases
+
+
+def require(group, cases):
+    """Print a run's checks and fail on any past its bound."""
+    for case, (value, share, note) in cases.items():
+        print(f"  [{group}] {case}: {value} ({share:.3g} of the bound; "
+              f"{note})", flush=True)
+        check(np.isfinite(share) and share <= 1.0,
+              f"{group}: {case} = {value} ({share} of its bound; {note})")
+
+
+def prefix_requests(cfg):
+    """The prefix leg's traffic: one 384-token system prompt (24 pages);
+    8 requests carry it plus a suffix of 16–120 tokens, 2 are exactly it
+    (full-prefix resumes); 16–48 new tokens each. Two waves: the first
+    suffix request and the first duplicate (both prefill cold, since a
+    prompt's pages are indexed only once its prefill is read back), then
+    the other 8, which hit."""
+    rng = np.random.default_rng(SEED + 9)
+    V = cfg.vocab_size
+    sysp = rng.integers(1, V, PREFIX_SYS).tolist()
+    sufs = rng.integers(16, 121, 8)
+    news = rng.integers(16, 49, 10)
+    reqs = [(sysp + rng.integers(1, V, int(n)).tolist(), int(m))
+            for n, m in zip(sufs, news[:8])]
+    dups = [(list(sysp), int(m)) for m in news[8:]]
+    return [[reqs[0], dups[0]], reqs[1:] + dups[1:]]
+
+
+def prefix_leg(cfg, params, cfg32, params32, kv_dtype=None,
+               pool_hbm_bytes=None, shared=True, device="cuda"):
+    """One serve of the prefix traffic (``shared=False``: without the
+    index, for comparison) on a NaN-poisoned pool, and its checks:
+    ``engine_cases``; with the index also at least 7 hits, 1 resume and 1
+    copy-on-write, the system prompt's 24 pages bitwise as the first
+    prefill wrote them (and still indexed), and for a bf16 model
+    rpa_tile_kernel (K4's with quantized pages) launched by a burst with
+    prefill_start > 0; every token within its bound (``tokens_case``).
+    Returns (cases, numbers)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatcher
+    engine = ContinuousBatcher(
+        cfg, params, kv_dtype=kv_dtype, pool_hbm_bytes=pool_hbm_bytes,
+        prefix_cache_pages=PREFIX_CACHE_PAGES if shared else None,
+        device=device, **SERVE_GEOMETRY)
+    poison_pool(engine)
+    snap = {}
+
+    def keep_system_pages():
+        # slot 0 holds the first request, whose table starts with the
+        # system prompt's pages, read back (and indexed) by now
+        pages = engine._page_tbl[0][:PREFIX_SYS // engine._ps]
+        snap["pages"] = pages
+        snap["rows"] = [buf[pages].clone() for bufs in engine._cache.values()
+                        for buf in bufs]
+
+    reqs, results, seconds, steps, k1 = drive(
+        engine, prefix_requests(cfg), keep_system_pages if shared else None)
+    L = cfg.num_hidden_layers
+    st = dict(engine.stats)
+    cases = engine_cases(engine, reqs, results, steps)
+    if shared:
+        pages = snap["pages"]
+        same = all(torch.equal(buf[pages].view(torch.uint8),
+                               old.view(torch.uint8))
+                   for buf, old in zip((b for bufs in engine._cache.values()
+                                        for b in bufs), snap["rows"]))
+        indexed = set(pages) <= set(engine._prefix.cached_page_ids())
+        suffix_tile = [sum(n for k, n in s["launches"].items()
+                           if k.endswith("_tile")) for s in steps
+                       if s["suffix"]]
+        cases.update({
+            "prefix hits": [st.get("prefix_hits", 0),
+                            exact(st.get("prefix_hits", 0)
+                                  >= PREFIX_MIN_HITS),
+                            f"at least {PREFIX_MIN_HITS}"],
+            "resumes": [st.get("prefix_resumes", 0),
+                        exact(st.get("prefix_resumes", 0) >= 1),
+                        "at least 1"],
+            "cow copies": [st.get("cow_copies", 0),
+                           exact(st.get("cow_copies", 0) >= 1),
+                           "at least 1"],
+            "shared pages": [len(pages), exact(same and indexed),
+                             "the system prompt's pages bitwise as its "
+                             "prefill wrote them, and still indexed"]})
+        if cfg.dtype != torch.float32:
+            cases["suffix tile launch"] = [
+                max(suffix_tile, default=0),
+                exact(any(n >= L for n in suffix_tile)),
+                f"rpa_tile_kernel launches of the {len(suffix_tile)} "
+                "bursts with prefill_start > 0"]
+    del engine, snap
+    torch.cuda.empty_cache()
+    cases["tokens"] = tokens_case(cfg, params, cfg32, params32, reqs,
+                                  results, kv_dtype, device)
+    n_tok = sum(len(r.out) for r in results if r is not None)
+    rows = sum(len(p) for p, _ in reqs) - st.get("prefix_tokens_shared", 0)
+    return cases, {"tokens": n_tok, "seconds": seconds,
+                   "tokens_per_s": n_tok / seconds, "prefill_rows": rows,
+                   "stats": st, "launches": launch_totals(steps, k1)}
+
+
+def launch_totals(steps, k1):
+    """A run's launches by kernel (K3/K4 by kernel, K1 as flash_fwd)."""
+    import collections
+    out = collections.Counter()
+    for s in steps:
+        out.update(s["launches"])
+    out["flash_fwd"] += k1
+    return out
+
+
+def spec_requests(cfg):
+    """The speculative leg's traffic: 8 requests with no shared prefix,
+    prompts of 16–300 tokens, 32–64 new tokens each, all queued at once."""
+    rng = np.random.default_rng(SEED + 10)
+    lens = rng.integers(16, 301, 8)
+    news = rng.integers(32, 65, 8)
+    return [[(rng.integers(1, cfg.vocab_size, int(n)).tolist(), int(m))
+             for n, m in zip(lens, news)]]
+
+
+def spec_leg(cfg, params, cfg32, params32, draft_layers=None,
+             kv_dtype=None, pool_hbm_bytes=None, device="cuda"):
+    """One serve of the speculative traffic on a NaN-poisoned pool with a
+    ``draft_layers``-layer draft (None: plain greedy, no draft), and its
+    checks: ``engine_cases``; with a draft also speculative steps run,
+    the rewind left no slot a page past pages_for(pos) after any of them,
+    K1 launched once per draft layer per draft prefill; for an f32
+    self-draft the accepted share at least MIN_ACCEPTANCE; every token
+    within its bound (``tokens_case``). Returns (cases, numbers)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatcher
+    engine = ContinuousBatcher(
+        cfg, params, kv_dtype=kv_dtype, pool_hbm_bytes=pool_hbm_bytes,
+        spec_decode=draft_layers is not None, spec_k=SPEC_K,
+        spec_draft_layers=draft_layers, device=device, **SERVE_GEOMETRY)
+    poison_pool(engine)
+    reqs, results, seconds, steps, k1 = drive(engine, spec_requests(cfg))
+    st = dict(engine.stats)
+    cases = engine_cases(engine, reqs, results, steps)
+    if draft_layers is not None:
+        draft = engine._spec.stats
+        surplus = max(s["surplus"] for s in steps)
+        cases.update({
+            "spec steps": [st.get("spec_steps", 0),
+                           exact(st.get("spec_steps", 0) > 0),
+                           "speculative steps run"],
+            "rewind": [surplus, exact(surplus == 0),
+                       "pages past pages_for(pos) a live slot maps after "
+                       "a speculative step"],
+            "draft prefill": [k1, exact(k1 == draft["draft_prefills"]
+                                        * draft_layers and k1 > 0),
+                              f"flash_fwd launches, {draft_layers} per "
+                              f"draft prefill ({draft['draft_prefills']})"]})
+        st["draft"] = dict(draft)
+        acc = st.get("spec_accepted", 0) / max(1, st.get("spec_proposed", 0))
+        st["acceptance"] = acc
+        if cfg.dtype == torch.float32 \
+                and draft_layers == cfg.num_hidden_layers:
+            cases["acceptance"] = [acc, (1 - acc) / (1 - MIN_ACCEPTANCE),
+                                   f"accepted share of the self-draft's "
+                                   f"proposals, at least {MIN_ACCEPTANCE}"]
+    del engine
+    torch.cuda.empty_cache()
+    cases["tokens"] = tokens_case(cfg, params, cfg32, params32, reqs,
+                                  results, kv_dtype, device)
+    n_tok = sum(len(r.out) for r in results if r is not None)
+    return cases, {"tokens": n_tok, "seconds": seconds,
+                   "tokens_per_s": n_tok / seconds, "stats": st,
+                   "launches": launch_totals(steps, k1)}
+
+
+def fault_legs(cfg, params32, device="cuda"):
+    """The phase-9 runs ``tools/serve_fault_check.py`` holds each planted
+    fault to, all in f32 (where a token is held to 1e-3 of its best
+    logit): the prefix traffic with the index, the speculative traffic
+    with the self-draft and with the SHALLOW_DRAFT-layer draft. Returns
+    {group: cases}."""
+    import dataclasses
+    import torch
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    out = {"prefix f32": prefix_leg(cfg32, params32, cfg32, params32,
+                                    device=device)[0]}
+    for name, n in (("self-draft", cfg.num_hidden_layers),
+                    (f"{SHALLOW_DRAFT}-layer draft", SHALLOW_DRAFT)):
+        out[f"spec f32 {name}"] = spec_leg(cfg32, params32, cfg32, params32,
+                                           n, device=device)[0]
+    return out
+
+
+def prefix_spec_phase(cfg):
+    """Phase 9: prefix sharing and speculative decoding at Llama-2-7B's
+    full width and depth (random weights, seed 0). Every run's checks must
+    pass. Returns ({kernel: launches over the phase's serves}, numbers)."""
+    import collections
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.models.llama_paged import page_bytes
+    params = init_params(cfg, seed=SEED, device="cuda")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = {k: v.float() for k, v in params.items()}
+    budget = (SERVE_GEOMETRY["max_batch"]
+              * -(-SERVE_GEOMETRY["max_len"] // SERVE_GEOMETRY["page_size"])
+              + 1) * page_bytes(cfg, SERVE_GEOMETRY["page_size"])
+    launches = collections.Counter()
+    numbers = {}
+
+    def run(group, leg, *args, **kw):
+        cases, nums = leg(*args, **kw)
+        require(group, cases)
+        launches.update(nums.pop("launches"))
+        numbers[group] = nums
+        print(f"[prefix/spec] {group}: {nums['tokens']} tokens in "
+              f"{nums['seconds']:.3f} s = {nums['tokens_per_s']:.2f} "
+              f"tokens/s; stats {nums['stats']}", flush=True)
+        return nums
+
+    # prefix sharing
+    shared = run("prefix bf16", prefix_leg, cfg, params, cfg32, params32)
+    alone = run("prefix bf16 unshared", prefix_leg, cfg, params, cfg32,
+                params32, shared=False)
+    for kv in ("int8", "fp8"):
+        run(f"prefix {kv}", prefix_leg, cfg, params, cfg32, params32, kv,
+            budget)
+    run("prefix f32", prefix_leg, cfg32, params32, cfg32, params32)
+    print(f"[prefix/spec] prefill rows the device ran (live query rows of "
+          f"the prefill bursts): shared {shared['prefill_rows']}, unshared "
+          f"{alone['prefill_rows']}; tokens/s shared "
+          f"{shared['tokens_per_s']:.2f}, unshared "
+          f"{alone['tokens_per_s']:.2f}", flush=True)
+    # speculative decoding
+    L = cfg.num_hidden_layers
+    run("spec f32 self-draft", spec_leg, cfg32, params32, cfg32, params32, L)
+    plain = run("spec bf16 plain", spec_leg, cfg, params, cfg32, params32)
+    self_d = run("spec bf16 self-draft", spec_leg, cfg, params, cfg32,
+                 params32, L)
+    shallow = run(f"spec bf16 {SHALLOW_DRAFT}-layer draft", spec_leg, cfg,
+                  params, cfg32, params32, SHALLOW_DRAFT)
+    run(f"spec int8 {SHALLOW_DRAFT}-layer draft", spec_leg, cfg, params,
+        cfg32, params32, SHALLOW_DRAFT, "int8", budget)
+    print(f"[prefix/spec] tokens/s over bf16 pages: plain "
+          f"{plain['tokens_per_s']:.2f}, self-draft "
+          f"{self_d['tokens_per_s']:.2f} (acceptance "
+          f"{self_d['stats']['acceptance']:.4f}), {SHALLOW_DRAFT}-layer "
+          f"draft {shallow['tokens_per_s']:.2f} (acceptance "
+          f"{shallow['stats']['acceptance']:.4f}; with random weights a "
+          "truncated draft's acceptance says nothing of a trained "
+          "model's)", flush=True)
+    del params, params32
+    torch.cuda.empty_cache()
+    for kernel in ("ragged_paged_attention", "ragged_paged_attention_tile",
+                   "ragged_paged_attention_quant",
+                   "ragged_paged_attention_quant_tile", "flash_fwd"):
+        check(launches[kernel] > 0, f"phase 9 never launched {kernel}")
+    print(f"[prefix/spec] launches over the phase's serves: "
+          f"{dict(launches)}", flush=True)
+    return launches, numbers
+
+
 FLASH_REPLACES = {
     "flash_fwd": "paddle_tpu/ops/flash_attention.py:316",
     # one kernel for both of K2's (dq_kernel :201, dkv_kernel :243)
@@ -2163,6 +2652,12 @@ def main() -> int:
     t0 = time.perf_counter()
     records += sparse_phase()
     phase("sparse", t0)
+    # 9. prefix sharing and speculative decoding on the serving engine
+    t0 = time.perf_counter()
+    p9, _ = prefix_spec_phase(cfg)
+    for rec in records:
+        rec["launches_prefix_spec"] = p9[rec["name"]]
+    phase("prefix and speculative serving", t0)
     phase("total", t_all)
     print(json.dumps({"kernels": records}))
     print(card)

@@ -7,6 +7,16 @@ serving path is held to. ``_cached_attention_slots`` is the decode-row
 oracle of the ragged kernel. The cache is updated in place where the JAX
 package wrote a fresh buffer through ``dynamic_update_slice``.
 
+The slot primitives run over a dense per-slot cache (``init_kv_cache``,
+``[B, S, KV, hd]`` per layer) whose batch axis is a POOL OF SLOTS with
+independent positions: ``llama_prefill_slot`` prefills one bucket-padded
+prompt into one slot (its attention through ``_attention``: kernel K1 on
+a CUDA tensor), ``llama_decode_step_slots`` advances every slot one token
+at its own position, and ``llama_decode_burst`` runs n such steps with
+the serving engine's stop rules. The speculative draft
+(``inference/speculative.py``) is their caller in the port; the slot
+attention is plain tensor arithmetic, as in the JAX package.
+
 Sampling: greedy (``temperature <= 0``) is argmax and is held to the JAX
 package token for token. Temperature and top-k sampling draw from an
 explicit ``torch.Generator``; they cannot reproduce ``jax.random``'s bits.
@@ -21,7 +31,8 @@ from .llama import (LlamaConfig, _mlp, _qkv, _rmsnorm, _rope, _trunk,
                     split_layer_params)
 
 __all__ = ["init_kv_cache", "llama_prefill", "llama_decode_step",
-           "llama_generate"]
+           "llama_generate", "llama_decode_step_slots", "llama_prefill_slot",
+           "llama_decode_burst"]
 
 
 def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
@@ -115,6 +126,86 @@ def llama_decode_step(params, cache, pos: int, token, config: LlamaConfig):
     L = config.num_hidden_layers
     return logits, {"k": tuple(ks[l] for l in range(L)),
                     "v": tuple(vs[l] for l in range(L))}
+
+
+def llama_decode_step_slots(params, cache, pos, token, config: LlamaConfig):
+    """``llama_decode_step`` with a PER-SLOT position vector.
+
+    token [B] int32, pos [B] int32: slot b writes its K/V at row pos[b]
+    (in place) and attends rows <= pos[b]. Free or finished slots rewrite
+    their frozen row with identical values: dead compute, not corruption.
+    Returns (next-token logits [B, V] f32, cache)."""
+    c = config
+    layer_p, other = split_layer_params(params)
+    B = token.shape[0]
+    x = other["embed_tokens"][token.long()[:, None]].to(c.dtype)
+    positions = pos[:, None].to(torch.int32)
+    rows = torch.arange(B, device=x.device)
+    at = pos.long()
+    for l in range(c.num_hidden_layers):
+        lp = layer_slice(layer_p, l)
+        h = _rmsnorm(x, lp["ln1"], c.rms_norm_eps)
+        q, k, v = _qkv(h, lp, c)
+        q, k = _rope(q, k, positions, c.rope_theta, c.head_dim)
+        kc, vc = cache["k"][l], cache["v"][l]
+        kc[rows, at] = k[:, 0]
+        vc[rows, at] = v[:, 0]
+        att = _cached_attention_slots(q, kc, vc, pos, c)
+        y = x + (att.reshape(B, 1, -1) @ lp["wo"])
+        x = _mlp(y, lp, c)
+    return lm_head_logits(x[:, 0, :], other, c), cache
+
+
+def llama_prefill_slot(params, cache, tokens, slot: int, tlen: int,
+                       config: LlamaConfig, temperature: float = 0.0,
+                       top_k: int = 0, generator=None):
+    """Prefill ONE request into cache slot ``slot``.
+
+    tokens [Tb] int32, the prompt padded to a bucket length; ``tlen`` the
+    real prompt length. Writes rows [0, Tb) of the slot in place (pad rows
+    hold K/V that decode overwrites before its mask ever reaches them),
+    samples the first generated token from the logits at tlen - 1, and
+    returns (first token as a 0-d int32 tensor, cache)."""
+    Tb = tokens.shape[0]
+    S = cache["k"][0].shape[1]
+    if not 1 <= int(tlen) <= Tb <= S:
+        raise ValueError(f"prompt length {tlen}, bucket {Tb}, cache rows "
+                         f"{S}: want 1 <= tlen <= bucket <= rows")
+    with torch.no_grad():
+        x, other, ks, vs = _trunk(params, tokens[None, :], config)
+        for l in range(config.num_hidden_layers):
+            cache["k"][l][int(slot), :Tb] = ks[l][0]
+            cache["v"][l][int(slot), :Tb] = vs[l][0]
+        logits = lm_head_logits(x[:, int(tlen) - 1, :], other, config)
+        first = _sample(logits, temperature, top_k, generator)
+    return first[0], cache
+
+
+def llama_decode_burst(params, cache, pos, tok, done, limit, eos_id: int,
+                       config: LlamaConfig, n: int, temperature: float = 0.0,
+                       top_k: int = 0, pad_id: int = 0, generator=None):
+    """n slot-decode steps, the dense serving hot loop.
+
+    pos/tok/done/limit [B]; ``eos_id`` -1 for none. A slot stops advancing
+    when it emits eos_id or its position reaches ``limit`` (= prompt_len +
+    max_new - 1, capped at S - 1); finished slots emit ``pad_id`` and
+    freeze. Returns (cache, pos, tok, done, emitted [n, B])."""
+    emitted = []
+    with torch.no_grad():
+        for _ in range(n):
+            logits, cache = llama_decode_step_slots(params, cache, pos, tok,
+                                                    config)
+            nxt = _sample(logits, temperature, top_k, generator)
+            emitted.append(torch.where(done, torch.full_like(nxt, pad_id),
+                                       nxt))
+            new_pos = torch.where(done, pos, pos + 1)
+            tok = torch.where(done, tok, nxt)
+            done = done | (nxt == eos_id) | (new_pos >= limit)
+            pos = new_pos
+    emitted = torch.stack(emitted) if emitted \
+        else torch.empty((0, tok.shape[0]), dtype=tok.dtype,
+                         device=tok.device)
+    return cache, pos, tok, done, emitted
 
 
 def _sample(logits, temperature, top_k, generator=None):

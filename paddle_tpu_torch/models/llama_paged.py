@@ -25,9 +25,16 @@ payload and scale at the same indexes; the ragged kernel dequantizes what
 it reads (kernel K4). ``kv_dtype=None`` is the unquantized cache, with no
 scale pools.
 
-Waiting for later slices: the gather read path (and its quantized read),
-prefix-suffix prefill, speculative verify, page export/import and the
-sharded pool.
+Prefix sharing and speculative decoding (the ragged read only):
+``copy_pages`` is the copy-on-write primitive (payload and scale rows of
+whole pages); a suffix prefill is ``_ragged_prefill_phase`` with
+``prefill_start > 0``; ``llama_paged_verify`` writes each slot's
+speculative segment row by row and reads it back through the ragged
+kernel with ``q_len = n_tok``, ``kv_len = start + n_tok``.
+
+Waiting for later slices: the gather read path (and its quantized read,
+the gather branch of ``llama_paged_verify``, ``llama_paged_prefill_suffix``),
+page export/import and the sharded pool (ROADMAP Queue 1 items 4, 7, 8).
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ from .llama import (LlamaConfig, _mlp, _qkv, _rmsnorm, _rope, layer_slice,
 from .llama_decode import _sample
 
 __all__ = ["init_paged_kv_cache", "page_bytes", "paged_kv_bytes_per_token",
-           "llama_ragged_burst"]
+           "llama_ragged_burst", "copy_pages", "llama_paged_verify"]
 
 
 def init_paged_kv_cache(config: LlamaConfig, num_pages: int, page_size: int,
@@ -72,6 +79,24 @@ def init_paged_kv_cache(config: LlamaConfig, num_pages: int, page_size: int,
             cache[name] = tuple(
                 torch.zeros(shape[:-1], dtype=SCALE_DTYPE, device=dev)
                 for _ in range(c.num_hidden_layers))
+    return cache
+
+
+def copy_pages(cache, src_ids, dst_ids):
+    """Copy whole pool pages ``src_ids[i] -> dst_ids[i]`` in place across
+    every leaf (payload pools always, scale pools when quantized): the
+    COPY-ON-WRITE primitive of prefix sharing. Before a burst writes into
+    a page other block tables still map, the scheduler copies it into a
+    freshly allocated private page and redirects only the writer. The
+    copies are enqueued on the pools' device stream, so they land before
+    any later launch on it reads or writes those pages. Returns the
+    cache."""
+    for bufs in cache.values():
+        dev = bufs[0].device
+        s = torch.as_tensor(list(src_ids), dtype=torch.long, device=dev)
+        d = torch.as_tensor(list(dst_ids), dtype=torch.long, device=dev)
+        for buf in bufs:
+            buf[d] = buf[s]
     return cache
 
 
@@ -281,3 +306,73 @@ def llama_ragged_burst(params, cache, block_table, pos, tok, done, limit,
         else torch.empty((0, tok.shape[0]), dtype=tok.dtype,
                          device=tok.device)
     return cache, pos, tok, done, emitted, firsts
+
+
+def llama_paged_verify(params, cache, block_table, start, tokens, n_tok,
+                       config: LlamaConfig, ragged: bool = True,
+                       kv_dtype: str | None = None):
+    """ONE launch per layer verifying every slot's speculative segment.
+
+    tokens [B, Tv] int32 (Tv = k+1): slot b's row is [current token,
+    proposals...] padded; n_tok [B] the live row length (0 skips the
+    slot: its writes go to the scratch page, its targets are junk the host
+    ignores); start [B] the slot's position, where row j lands at absolute
+    position start + j — not page-aligned, so the K/V rows are written
+    one by one through the block table (live rows to their page and row,
+    dead rows to ``SCRATCH_PAGE``; quantized first with ``kv_dtype``),
+    exactly as a decode step would write them one launch at a time. The
+    ragged kernel then reads them back with q_len = n_tok and kv_len =
+    start + n_tok, so its bottom-right causal mask lets row j attend rows
+    <= start + j. Rows past the accepted prefix become stale pool rows the
+    masks hide; the host rewinds by resetting pos and freeing trailing
+    pages (shared pages were copied private by the growth sweep before
+    these writes).
+
+    Returns (targets [B, Tv] int32 — the greedy token after each row
+    position, i.e. targets[b, j] is the token at start + j + 1 — and the
+    cache). Greedy only: speculative serving runs at temperature 0, where
+    accept-prefix is exact. ``ragged=False`` (the JAX package's gather
+    read) is not ported."""
+    if not ragged:
+        raise NotImplementedError(
+            "llama_paged_verify(ragged=False), the gather read path, is not "
+            "ported yet (ROADMAP Queue 1 item 4); the port verifies through "
+            "the ragged kernel")
+    c = config
+    layer_p, other = split_layer_params(params)
+    B, Tv = tokens.shape
+    ps = int(cache["k"][0].shape[1])
+    P = block_table.shape[1]
+    dev = tokens.device
+    start32 = start.to(torch.int32)
+    lens32 = n_tok.to(torch.int32)
+    kv_lens = start32 + lens32
+    positions = start32[:, None] + torch.arange(
+        Tv, dtype=torch.int32, device=dev)[None, :]
+    live = torch.arange(Tv, device=dev)[None, :] < lens32[:, None]
+    pg_idx = (positions // ps).long().clamp(max=P - 1)
+    wpage = torch.where(live, block_table.long().gather(1, pg_idx),
+                        torch.full_like(pg_idx, SCRATCH_PAGE))
+    wrow = (positions % ps).long()
+    quant = kv_dtype is not None
+    with torch.no_grad():
+        x = other["embed_tokens"][tokens.long()].to(c.dtype)
+        for l in range(c.num_hidden_layers):
+            lp = layer_slice(layer_p, l)
+            h = _rmsnorm(x, lp["ln1"], c.rms_norm_eps)
+            q, k, v = _qkv(h, lp, c)
+            q, k = _rope(q, k, positions, c.rope_theta, c.head_dim)
+            kp, vp, ksp, vsp = _layer_pools(cache, l, quant)
+            if quant:
+                k, ks = quantize_lastdim(k, kv_dtype)   # + scales [B,Tv,KV]
+                v, vs = quantize_lastdim(v, kv_dtype)
+                ksp[wpage, wrow] = ks
+                vsp[wpage, wrow] = vs
+            kp[wpage, wrow] = k
+            vp[wpage, wrow] = v
+            att = _ragged_attn(q, kp, vp, block_table, lens32, kv_lens,
+                               page_size=ps, ksc=ksp, vsc=vsp)
+            y = x + (att.reshape(B, Tv, -1) @ lp["wo"])
+            x = _mlp(y, lp, c)
+        logits = lm_head_logits(x, other, c)           # [B, Tv, V] f32
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache

@@ -216,3 +216,84 @@ def test_bsa_variant_tool_plants_on_the_current_source(tools):
             assert all(at > start for at in _site_offsets(
                 text, fc._as_fault(variant))), name
     assert var.PLAN_VARIANTS == ("reversed", "pole_cut")
+
+
+PACKAGE = TOOLS.parent / "paddle_tpu_torch"
+# the checks that count kernel launches: on the CPU the wrappers take
+# their plain versions and count none, so these fail there by design
+LAUNCH_CHECKS = ("launches", "verify launches", "draft prefill")
+REHEARSAL = """
+import dataclasses, json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from paddle_tpu_torch.models import llama as tl
+torch.set_num_threads(1)
+cfg = tl.LlamaConfig.tiny(num_hidden_layers=2, hidden_size=128,
+                          num_attention_heads=1, num_key_value_heads=1,
+                          dtype=torch.bfloat16)
+params = tl.init_params(cfg, seed=0, device="cpu")
+cs.SHALLOW_DRAFT = 1           # the two-layer model's truncated draft
+res = cs.fault_legs(cfg, {k: v.float() for k, v in params.items()},
+                    device="cpu")
+print(json.dumps({g.replace("1-layer", "16-layer"): c
+                  for g, c in res.items()}))
+"""
+
+
+@pytest.fixture(scope="module")
+def serve_tool():
+    sys.path.insert(0, str(TOOLS))
+    try:
+        yield importlib.import_module("serve_fault_check")
+    finally:
+        sys.path.remove(str(TOOLS))
+
+
+def test_serve_faults_plant_on_the_current_modules(tools, serve_tool):
+    """Every fault of ``tools/serve_fault_check.py`` plants in the current
+    module it names and names the runs and checks it must fail."""
+    _, fc = tools
+    faults = serve_tool.FAULTS
+    assert faults["none"] is None and len(faults) == 5
+    for name, fault in faults.items():
+        if fault is None:
+            continue
+        module, spec = fault
+        text = (PACKAGE / module).read_text()
+        assert fc.plant(text, spec) != text, name
+        assert spec.must_fail and spec.cases, name
+
+
+@pytest.mark.parametrize("fault", ["none", "verify_kv_len", "cow_skipped",
+                                   "rewind_kept", "insert_at_admit"])
+def test_serve_faults_caught_by_phase9_checks_on_cpu(serve_tool, fault,
+                                                     tmp_path):
+    """Phase 9's fault runs (``chip_smoke.fault_legs``) at a tiny size on
+    the CPU, in a planted copy as the tool makes it: the unmodified engine
+    passes every check but the launch counts, and each planted fault fails
+    a check it names by at least CATCH_FACTOR."""
+    import json
+    import subprocess
+    copy = serve_tool.planted_copy(str(TOOLS.parent),
+                                   serve_tool.FAULTS[fault])
+    try:
+        script = tmp_path / "rehearse.py"
+        script.write_text(REHEARSAL)
+        proc = subprocess.run([sys.executable, str(script), copy],
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        import shutil
+        shutil.rmtree(copy, ignore_errors=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for cases in res.values():
+        for case in LAUNCH_CHECKS:
+            if case in cases:
+                assert cases.pop(case)[0] == 0, case
+    caught = serve_tool.verdict({fault: serve_tool.FAULTS[fault]},
+                                {fault: res})[fault]
+    if fault == "none":
+        assert not any(caught.values()), res
+    else:
+        assert caught and all(caught.values()), res

@@ -161,8 +161,8 @@ def test_page_accounting_matches_jax(models, live):
     (dict(kv_layout="dense"), NotImplementedError),
     (dict(kv_layout="bogus"), ValueError),
     (dict(precision="int8"), NotImplementedError),
-    (dict(prefix_cache_pages=4), NotImplementedError),
-    (dict(spec_decode=True), NotImplementedError),
+    (dict(precision="bfloat16"), NotImplementedError),
+    (dict(admission=object()), NotImplementedError),
 ])
 def test_unported_options_raise(models, kw, exc):
     _, _, tcfg, tparams = models

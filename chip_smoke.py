@@ -119,14 +119,37 @@ the repository. Phases, each failing the run when its check fails:
               share ≥ 0.95. Prints tokens/s and prefill rows. The
               planted faults of tools/serve_fault_check.py fail these
               checks.
+10. moe      — the MoE Llama family at Mixtral-8x7B's width (D=4096,
+              F=14336, H=32 over KV=8, 8 experts, top-2, rope theta 1e6;
+              random weights, seed 0, bf16). At 4 layers: phase 4's first
+              4 prompts in one ragged prefill burst (dead lanes routed
+              too) through K3 against the same call with the plain
+              attention passed in, within phase 4's 2·eps; the engine in
+              f32 over phase 4's traffic, token-identical to the same run
+              with the plain attention passed to every burst. At 16
+              layers: phase 4's traffic over bf16 pages (K3) and int8
+              pages (K4), K3/K4 launch counts as phase 4's, the pool
+              drained, pools NaN-poisoned, tokens/s, and the expert
+              assignments the prefill bursts dropped (> 0: capacity
+              binds). At 4 layers, training: one MoE layer through K1/K2
+              against the plain attention (routing replayed), the bf16
+              loss against f32, five steps under AdamW(LinearWarmup(
+              CosineAnnealingDecay)) with the rate moving, finite losses,
+              each layer's aux in [1, E], flash_fwd 2·L and flash_bwd L a
+              step, tokens/s, peak memory, and the share of a profiled
+              step's device time in _moe_block. Phase 5 times K3/K4 at
+              its group-4 shapes.
 
 The last lines are the kernels' JSON record (each kernel's launches by
-phase 9's serves as ``launches_prefix_spec``), the card line, and
+phase 9's serves as ``launches_prefix_spec``, by phase 10's runs as
+``launches_moe``), the card line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -541,23 +564,33 @@ SERVE_GEOMETRY = dict(max_batch=4, max_len=1024, prompt_buckets=(512,),
                       burst=8, page_size=16)
 
 
-def serve(cfg, params, device="cuda", kv_dtype=None, pool_hbm_bytes=None):
-    """Serve 8 requests (with ``kv_dtype`` pages, in a pool of
-    ``pool_hbm_bytes`` when given); returns (engine, requests, results,
-    seconds, mid-flight admission bursts, launches of the path's kernels —
-    K3, or K4 with kv_dtype, on rpa_kernel and rpa_tile_kernel together —,
-    per-step host seconds by kind)."""
-    import torch
-    from paddle_tpu_torch.inference.serving import ContinuousBatcher
-    from paddle_tpu_torch.ops import ragged_attention as ra
+def serve_requests(cfg):
+    """Phase 4's traffic: 8 (prompt, budget) requests, prompts of 16–500
+    tokens, 16–64 new tokens, from the seed."""
     rng = np.random.default_rng(SEED + 1)
     lens = rng.permutation(np.linspace(16, 500, 8).astype(int))
     news = rng.integers(16, 65, 8)
-    reqs = [(rng.integers(1, cfg.vocab_size, int(n)).tolist(), int(m))
+    return [(rng.integers(1, cfg.vocab_size, int(n)).tolist(), int(m))
             for n, m in zip(lens, news)]
+
+
+def serve(cfg, params, device="cuda", kv_dtype=None, pool_hbm_bytes=None,
+          prepare=None):
+    """Serve 8 requests (with ``kv_dtype`` pages, in a pool of
+    ``pool_hbm_bytes`` when given; ``prepare(engine)`` runs before the
+    first request, e.g. ``poison_pool``); returns (engine, requests,
+    results, seconds, mid-flight admission bursts, launches of the path's
+    kernels — K3, or K4 with kv_dtype, on rpa_kernel and rpa_tile_kernel
+    together —, per-step host seconds by kind)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatcher
+    from paddle_tpu_torch.ops import ragged_attention as ra
+    reqs = serve_requests(cfg)
     engine = ContinuousBatcher(cfg, params, kv_dtype=kv_dtype,
                                pool_hbm_bytes=pool_hbm_bytes, device=device,
                                **SERVE_GEOMETRY)
+    if prepare is not None:
+        prepare(engine)
     rids = [engine.add_request(p, m) for p, m in reqs]
     ra.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -581,16 +614,22 @@ def serve(cfg, params, device="cuda", kv_dtype=None, pool_hbm_bytes=None):
         midflight, launches, step_s
 
 
-def first_token_logits(cfg, params, prompts, device="cuda", kv_dtype=None):
+def first_token_logits(cfg, params, prompts, device="cuda", kv_dtype=None,
+                       attn=None):
     """Last-position logits of the serving path's prefill phase (paged
-    pool, ragged kernel) for up to 4 prompts in one launch per layer."""
+    pool, ragged kernel) for up to 4 prompts in one launch per layer, the
+    dead lanes of the [4, 512] burst included; the pool is NaN-poisoned
+    first. ``attn`` replaces the pool read (``plain_ragged_attn``: the
+    plain version); None keeps the kernel."""
     import torch
-    from paddle_tpu_torch.models.llama_paged import (_ragged_prefill_phase,
+    from paddle_tpu_torch.models.llama_paged import (_ragged_attn,
+                                                     _ragged_prefill_phase,
                                                      init_paged_kv_cache)
     ps, width, max_pages = 16, 512, 64
     B = 4
     cache = init_paged_kv_cache(cfg, 1 + B * width // ps, ps,
                                 kv_dtype=kv_dtype, device=device)
+    poison_cache_pools(cache)
     bt = torch.zeros((B, max_pages), dtype=torch.int32)
     toks = torch.zeros((B, width), dtype=torch.int32)
     lens = torch.zeros(B, dtype=torch.int32)
@@ -603,7 +642,7 @@ def first_token_logits(cfg, params, prompts, device="cuda", kv_dtype=None):
         logits, _ = _ragged_prefill_phase(
             params, cache, bt.to(device), toks.to(device), lens.to(device),
             torch.zeros(B, dtype=torch.int32, device=device), cfg,
-            kv_dtype=kv_dtype)
+            kv_dtype=kv_dtype, attn=attn or _ragged_attn)
     return logits[:len(prompts)]
 
 
@@ -660,7 +699,7 @@ def teacher_forced(cfg, params, cfg32, params32, reqs, results,
 
     def forward(p, seq, c):
         if kv_dtype is None:
-            return llama_forward(p, seq, c)
+            return llama_forward(p, seq, c)[0]
         return codec_forward(p, seq, c, kv_dtype)
 
     worst = {"eps": 0.0, "gap_over_delta": 0.0, "argmax_agree": 0,
@@ -759,7 +798,7 @@ def pool_forward(params, tokens, cfg, pool_kv):
     own = []
     for l in range(cfg.num_hidden_layers):
         kp, vp = L._expand_gqa(*pool_kv[l], cfg)
-        x, k, v = L._decoder_layer(
+        x, k, v, _ = L._decoder_layer(
             x, L.layer_slice(layer_p, l), cfg, pos,
             flash=lambda q, _k, _v, causal: flash_attention_raw(
                 q, kp, vp, causal=causal))
@@ -1334,7 +1373,16 @@ def layer_check(cfg, device="cuda"):
     of p and ds to bf16 and the bf16 roundings that follow give ≈ 2^-8 of
     each value: LAYER_TOL = 2^-5 of each tensor's max leaves a 4× margin
     over 2^-7. The layer's output is dominated by the residual x, so only
-    the attention output and the gradients can see attention."""
+    the attention output and the gradients can see attention.
+
+    An MoE layer (phase 10) routes each token to its top-k experts, a
+    choice that a change of 2^-8 in the attention output can flip where
+    two router probabilities nearly tie; a flipped choice moves that
+    token's expert output and the gradients by a whole expert row, which
+    is the router's discontinuity and not the kernels' error. So the
+    plain run takes the kernel run's choices (``route_replay``: the same
+    experts, the gates from its own probabilities) and the check reports
+    how many of its own choices flipped (``check_flips``)."""
     import torch
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1363,8 +1411,13 @@ def layer_check(cfg, device="cuda"):
         return seen[0].detach(), {"out": y.detach(),
                                   **{"d" + k: v.grad for k, v in lp.items()}}
 
-    att, got = run(fa.flash_attention_raw)
-    att_ref, ref = run(fa.flash_attention_plain)
+    replay = RouteReplay()
+    with replay.record():
+        att, got = run(fa.flash_attention_raw)
+    with replay.replay() as flips:
+        att_ref, ref = run(fa.flash_attention_plain)
+    if cfg.num_experts:
+        check_flips(flips, "layer check")
     err, share = flash_err("layer attention output", att, att_ref, cfg.dtype)
     print(f"  layer attention max|kernel − plain| {err:.3e} ({share:.3f} of "
           f"its per-row bound)", flush=True)
@@ -1380,15 +1433,18 @@ def layer_check(cfg, device="cuda"):
     return worst
 
 
-def profile_train_step(step, toks, labels):
-    """torch.profiler over one training step: host wall, device busy, and
-    device time by kernel (flash kernels, GEMMs, the rest)."""
+def profile_train_step(step, toks, labels, around=None):
+    """torch.profiler over one training step (inside the context manager
+    ``around``, e.g. ``annotated_layers()``): host wall, device busy, and
+    device time by kernel (flash kernels, GEMMs, the rest). Returns (loss,
+    numbers, the profile's events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with around or contextlib.nullcontext(), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         loss = step(toks, labels)
         torch.cuda.synchronize()
@@ -1422,7 +1478,8 @@ def profile_train_step(step, toks, labels):
         print(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}")
     return float(loss), {"wall_ms": wall_ms, "device_busy_ms": busy,
                          "gemm_ms": gemm, "int64_ms": int64,
-                         **{k + "_ms": v for k, v in flash.items()}}
+                         **{k + "_ms": v for k, v in flash.items()}}, \
+        prof.events()
 
 
 def training_phase(cfg, device="cuda"):
@@ -1498,7 +1555,7 @@ def training_phase(cfg, device="cuda"):
     check(all(np.isfinite(v) for v in vals), f"non-finite loss in {vals}")
     check(vals[-1] < vals[0], f"loss did not fall: {vals}")
     check(launches == expect, f"flash launches {launches} != {expect}")
-    after, _ = profile_train_step(step, toks, labels)
+    after, _, _ = profile_train_step(step, toks, labels)
     print(f"[train] loss after {TRAIN_STEPS} steps {after:.6f} (first "
           f"{vals[0]:.6f})", flush=True)
     check(np.isfinite(after) and after < vals[0],
@@ -1515,7 +1572,7 @@ CAPACITY_RATIO = 1.9
 
 
 def checked_serve(cfg, params, device="cuda", kv_dtype=None,
-                  pool_hbm_bytes=None):
+                  pool_hbm_bytes=None, prepare=None):
     """``serve`` and the checks every serving run must pass: each request
     completes with its full budget, admissions land mid-flight, the pool
     drains, and the path's kernels launch once per layer per step: K3 (or
@@ -1527,7 +1584,7 @@ def checked_serve(cfg, params, device="cuda", kv_dtype=None,
     from paddle_tpu_torch.ops import ragged_attention as ra
     engine, reqs, results, seconds, midflight, total, step_s = serve(
         cfg, params, device, kv_dtype=kv_dtype,
-        pool_hbm_bytes=pool_hbm_bytes)
+        pool_hbm_bytes=pool_hbm_bytes, prepare=prepare)
     kernel, other = ("K4", "K3") if kv_dtype else ("K3", "K4")
     mine = "ragged_paged_attention" + ("_quant" if kv_dtype else "")
     launches = {"rpa": ra.LAUNCHES[mine], "tile": ra.LAUNCHES[mine + "_tile"]}
@@ -1646,6 +1703,12 @@ def serving_phases(cfg):
     # a speculative verify at k = 4: 5 query rows a slot, kv not aligned
     verify = {kv: timed_shape("verify", 4, 5, 605, H, KV, hd, 16, 64, kv)
               for kv in (None, "int8")}
+    # phase 10's shapes: GQA group 4 (Mixtral-8x7B: 32 query heads over 8
+    # kv heads), over bf16 and int8 pages
+    group4 = {kv: (timed_shape("decode", 4, 1, 1024, 32, 8, hd, 16, 64, kv),
+                   timed_shape("prefill", 4, 512, 512, 32, 8, hd, 16, 64,
+                               kv))
+              for kv in (None, "int8")}
     qtimes = {kv: (timed_shape("decode", 4, 1, 1024, H, KV, hd, 16, 64, kv),
                    timed_shape("prefill", 4, 512, 512, H, KV, hd, 16, 64, kv))
               for kv in ("int8", "fp8")}
@@ -1708,6 +1771,8 @@ def serving_phases(cfg):
                "sdpa_on_dequantized_ms": pre8["sdpa_on_dequantized_ms"],
                "rpa_kernel_ms": pre8["rpa_kernel_ms"],
                "fp8": qtimes["fp8"][1], "verify": verify["int8"]}
+    k3["group4"], k3_tile["group4"] = group4[None]
+    k4["group4"], k4_tile["group4"] = group4["int8"]
     return [k3, k3_tile, k4, k4_tile]
 
 
@@ -2137,8 +2202,13 @@ def poison_pool(engine):
     written (say, a copy-on-write of an unwritten page) cannot pass as 0.
     The kernels and the plain version never read a row at or past a
     slot's kv_len, and every row below it is written before it is read."""
+    poison_cache_pools(engine._cache)
+
+
+def poison_cache_pools(cache):
+    """``poison_pool`` on a paged cache dict."""
     import torch
-    for bufs in engine._cache.values():
+    for bufs in cache.values():
         for buf in bufs:
             if buf.dtype == torch.int8:
                 buf.fill_(-128)
@@ -2223,7 +2293,7 @@ def f32_gaps(cfg32, params32, reqs, outs, device="cuda"):
         with torch.no_grad():
             lf = llama_forward(params32, torch.tensor([prompt + toks],
                                                       device=device),
-                               cfg32)[0]
+                               cfg32)[0][0]
         lf = lf[len(prompt) - 1:len(prompt) - 1 + len(toks)]
         gap = lf.max(dim=-1).values - lf.gather(
             1, torch.tensor(toks, device=device)[:, None])[:, 0]
@@ -2554,6 +2624,538 @@ def prefix_spec_phase(cfg):
     return launches, numbers
 
 
+# -------------------------------------------------------------- phase 10
+# Mixtral-8x7B's width, from mistralai/Mixtral-8x7B-v0.1's config.json;
+# depth is cut to fit one card (16 layers of bf16 weights are ~47 GB)
+MIXTRAL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+               num_attention_heads=32, num_key_value_heads=8, num_experts=8,
+               num_experts_per_tok=2, rope_theta=1e6, rms_norm_eps=1e-5,
+               max_position_embeddings=32768)
+MOE_SERVE_LAYERS = 16       # the throughput runs over bf16 and int8 pages
+MOE_CHECK_LAYERS = 4        # the burst oracle and the f32 engine identity
+MOE_TRAIN_LAYERS = 4        # training: weights, grads, bf16 moments ~48 GB
+# |bf16 loss − f32 loss| / f32 loss at phase 10's weights and batch,
+# calibrated as phase 7's LOSS_REL_TOL was: about 6× the gap of 3.88e-4
+# that the first chip run of this check read
+MOE_LOSS_REL_TOL = 2.5e-3
+
+
+def moe_config(layers, dtype=None):
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(num_hidden_layers=layers,
+                       dtype=dtype or torch.bfloat16, **MIXTRAL)
+
+
+def plain_ragged_attn(q, kp, vp, block_table, q_lens, kv_lens, *, page_size,
+                      ksc=None, vsc=None):
+    """K3/K4's plain version with ``_ragged_attn``'s signature: the oracle
+    that phase 10 passes to the paged functions in the kernels' place."""
+    from paddle_tpu_torch.ops.ragged_attention import \
+        ragged_paged_attention_reference
+    return ragged_paged_attention_reference(
+        q, kp, vp, block_table, q_lens, kv_lens, page_size=page_size,
+        k_scale=ksc, v_scale=vsc)
+
+
+def topk_margins(probs, k):
+    """Per row: the smallest gap among its k+1 largest router
+    probabilities (between consecutive choices, and between the k-th and
+    the first one left out)."""
+    import torch
+    top = torch.sort(probs.detach(), dim=-1,
+                     descending=True).values[:, :k + 1]
+    return (top[:, :-1] - top[:, 1:]).amin(-1)
+
+
+class RouteReplay:
+    """Phase 10's routing replay: ``record()`` keeps the top-k experts of
+    every ``_topk`` call of the model, in order; each ``replay()`` hands
+    them back, in the same order, to the calls of another run (gates from
+    that run's own probabilities, so its gradients flow as they would)
+    and yields its counts: the choices replayed, those where the run's
+    own top-k differs ("flipped"), the smallest top-k margin overall and
+    among the flipped rows. A dense model never routes: both are no-ops.
+    The run under ``replay()`` then sees the recorded run's routing, and
+    a comparison of the two sees the rest of the layer, not the router's
+    near-ties."""
+
+    def __init__(self):
+        self.saved = []
+
+    @contextlib.contextmanager
+    def _patched(self, fn, value=None):
+        from paddle_tpu_torch.models import llama as L
+        orig = L._topk
+        L._topk = functools.partial(fn, orig)
+        try:
+            yield value
+        finally:
+            L._topk = orig
+
+    def record(self):
+        def fn(orig, probs, k):
+            vals, idx = orig(probs, k)
+            self.saved.append(idx)
+            return vals, idx
+        return self._patched(fn)
+
+    def replay(self):
+        saved = iter(self.saved)
+        stats = {"choices": 0, "flipped": 0, "margin": float("inf"),
+                 "flip_margin": 0.0}
+
+        def fn(orig, probs, k):
+            _, own = orig(probs, k)
+            idx = next(saved)
+            margins = topk_margins(probs, k)
+            differ = (own != idx).any(-1)
+            stats["choices"] += idx.numel()
+            stats["flipped"] += int((own != idx).sum())
+            stats["margin"] = min(stats["margin"], float(margins.min()))
+            if bool(differ.any()):
+                stats["flip_margin"] = max(stats["flip_margin"],
+                                           float(margins[differ].max()))
+            return probs.gather(1, idx), idx
+        return self._patched(fn, stats)
+
+
+def check_flips(stats, what, calib=None):
+    """Print a replay's counts. With ``calib`` (the same replay against an
+    f32 run of the same weights), every flipped choice must be a near-tie
+    at the scale bf16 rounding itself reaches, phase 4's rule: the largest
+    top-k margin among the flipped rows at most twice the largest among
+    the rows that the f32 run flips against the recorded bf16 run."""
+    print(f"  {what} routing: {stats['flipped']} of {stats['choices']} "
+          f"choices flipped against the recorded run, largest top-k margin "
+          f"among them {stats['flip_margin']:.3e}, smallest overall "
+          f"{stats['margin']:.3e}", flush=True)
+    if calib is not None:
+        bound = 2 * calib["flip_margin"]
+        print(f"  {what}: f32 flips {calib['flipped']} of "
+              f"{calib['choices']}, largest margin among them "
+              f"{calib['flip_margin']:.3e}: bound {bound:.3e}", flush=True)
+        check(stats["flip_margin"] <= bound, f"{what}: a routing choice "
+              f"flipped at margin {stats['flip_margin']} > {bound}")
+
+
+@contextlib.contextmanager
+def count_drops(min_rows):
+    """Count the dropped expert assignments of every ``_route`` call over
+    at least ``min_rows`` rows (the prefill bursts, not the decode steps)
+    while the block runs, on the device: {"dropped": tensor or None,
+    "calls": n, "assignments": n}."""
+    from paddle_tpu_torch.models import llama as L
+    orig = L._route
+    tally = {"dropped": None, "calls": 0, "assignments": 0}
+
+    def route(tokens, gate_w, config):
+        out = orig(tokens, gate_w, config)
+        if tokens.shape[0] >= min_rows:
+            d = (~out[4]).sum()
+            tally["dropped"] = d if tally["dropped"] is None \
+                else tally["dropped"] + d
+            tally["calls"] += 1
+            tally["assignments"] += out[4].numel()
+        return out
+
+    L._route = route
+    try:
+        yield tally
+    finally:
+        L._route = orig
+
+
+def dropped(tally):
+    return 0 if tally["dropped"] is None else int(tally["dropped"])
+
+
+@contextlib.contextmanager
+def plain_bursts():
+    """Every ``llama_ragged_burst`` the engine launches meanwhile reads its
+    pools through ``plain_ragged_attn`` (passed as its ``attn``)."""
+    from paddle_tpu_torch.models import llama_paged as LP
+    orig = LP.llama_ragged_burst
+    LP.llama_ragged_burst = functools.partial(orig, attn=plain_ragged_attn)
+    try:
+        yield
+    finally:
+        LP.llama_ragged_burst = orig
+
+
+def moe_burst_oracle(cfg, params, cfg32, params32, device="cuda"):
+    """The first 4 of phase 4's prompts in one ragged prefill burst ([4,
+    512] rows, dead lanes included, every one of them routed): the
+    logits through K3 against the same call with the plain attention
+    passed in, within TOL = 2·eps, eps the plain bf16 burst's distance
+    from the plain f32 burst of the same weights (phase 4's calibration).
+    Both plain runs replay the kernel run's routing (``RouteReplay``):
+    otherwise a near-tie that one bf16 evaluation routes one way and
+    another the other way moves a token by a whole expert row, which is
+    the router's discontinuity, not attention's error (the first chip
+    run parted by 0.62 against a 2·eps of 0.45 on one prompt so; 299 of
+    16384 choices flip between the two bf16 runs, the largest at a top-k
+    margin of 0.0205); the choices that flip must be near-ties at the
+    scale the f32 run's flips set (``check_flips``). Returns (worst
+    |kernel − plain| / TOL, dropped assignments)."""
+    import torch
+    prompts = [p for p, _ in serve_requests(cfg)[:4]]
+    replay = RouteReplay()
+    with count_drops(2) as tally, replay.record():
+        got = first_token_logits(cfg, params, prompts, device)
+    with replay.replay() as flips:
+        plain = first_token_logits(cfg, params, prompts, device,
+                                   attn=plain_ragged_attn)
+    with replay.replay() as flips32:
+        ref32 = first_token_logits(cfg32, params32, prompts, device,
+                                   attn=plain_ragged_attn)
+    check_flips(flips, "burst oracle, plain bf16", calib=flips32)
+    worst = 0.0
+    for b, prompt in enumerate(prompts):
+        eps = float((plain[b] - ref32[b]).abs().max())
+        tol = 2 * eps
+        err = float((got[b] - plain[b]).abs().max())
+        agree = int(got[b].argmax()) == int(plain[b].argmax())
+        print(f"  burst oracle prompt {b} ({len(prompt)} tokens): "
+              f"|kernel − plain| {err:.4f}, eps {eps:.4f}, tol {tol:.4f}, "
+              f"argmax agree {agree}", flush=True)
+        check(bool(torch.isfinite(got[b]).all()), f"burst {b} not finite")
+        check(eps > 0 and np.isfinite(eps), f"burst {b}: eps {eps}")
+        check(err <= tol, f"MoE burst prompt {b}: kernel and plain logits "
+              f"differ by {err} (tol {tol})")
+        worst = max(worst, err / tol)
+    n = dropped(tally)
+    print(f"[moe] burst oracle: worst {worst:.3f} of the tolerance; "
+          f"{n} of {tally['assignments']} expert assignments dropped over "
+          f"{tally['calls']} routed calls", flush=True)
+    return worst, n
+
+
+def moe_engine_identity(cfg32, params32, device="cuda"):
+    """Phase 4's traffic through the f32 engine (f32 weights and pool:
+    rpa_kernel for every row) against the same run with the plain
+    attention passed to every burst: the same requests and schedule, so
+    the same batches, and in f32 the two differ by summation order only,
+    so the tokens must be identical. Pools NaN-poisoned. Returns (tokens,
+    K3 launches, dropped assignments of the kernel run's prefill
+    bursts)."""
+    runs = {}
+    for name in ("kernel", "plain"):
+        with contextlib.ExitStack() as stack:
+            if name == "plain":
+                stack.enter_context(plain_bursts())
+            tally = stack.enter_context(
+                count_drops(SERVE_GEOMETRY["max_batch"] + 1))
+            engine, reqs, results, seconds, _, launches, _ = serve(
+                cfg32, params32, device, prepare=poison_pool)
+            runs[name] = ([r.out if r else None for r in results], launches,
+                          dropped(tally), seconds, dict(engine.stats))
+        check(all(r is not None and r.done and len(r.out) == m
+                  for r, (_, m) in zip(results, reqs)),
+              f"f32 MoE engine ({name}): not every request completed")
+        check(engine.pages_in_use == 0, f"f32 MoE engine ({name}): pool "
+              "not drained")
+        del engine
+    (toks, k3, drops, secs, st), (ref, plain_k3, _, plain_secs, _) = \
+        runs["kernel"], runs["plain"]
+    L = cfg32.num_hidden_layers
+    expect = L * (st["decode_steps"] + st["prefill_bursts"])
+    n_tok = sum(len(t) for t in toks)
+    same = sum(a == b for a, b in zip(toks, ref))
+    print(f"[moe] f32 engine, {L} layers: {n_tok} tokens, {same}/"
+          f"{len(toks)} requests token-identical to the plain-attention "
+          f"run; K3 launches {k3} (expected {expect}), plain run {plain_k3};"
+          f" {drops} prefill assignments dropped; {secs:.2f} s "
+          f"(plain {plain_secs:.2f} s)", flush=True)
+    check(toks == ref, "f32 MoE engine: tokens differ from the plain-"
+          "attention run")
+    check(k3 == expect and plain_k3 == 0, f"f32 MoE engine: K3 launches "
+          f"{k3}, plain run {plain_k3} (expected {expect}, 0)")
+    return n_tok, k3, drops
+
+
+def moe_serving(cfg, device="cuda"):
+    """Phase 4's traffic through the engine at MOE_SERVE_LAYERS, bf16
+    weights, over bf16 pages (K3) and int8 pages (K4, in the bf16 pool's
+    byte budget), through ``checked_serve`` (every request complete,
+    admissions mid-flight, the pool drained, the launch counts) with the
+    pools NaN-poisoned; counts the dropped assignments of the prefill
+    bursts, which must be > 0. Returns {kv: numbers}."""
+    import torch
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.models.llama_paged import page_bytes
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    print(f"[moe] {cfg.num_hidden_layers}-layer init on device "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{sum(v.numel() for v in params.values()) / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    out, budget = {}, None
+    for kv in (None, "int8"):
+        with count_drops(SERVE_GEOMETRY["max_batch"] + 1) as tally:
+            engine, _, _, seconds, launches, n_tok = checked_serve(
+                cfg, params, device, kv_dtype=kv, pool_hbm_bytes=budget,
+                prepare=poison_pool)
+        if budget is None:
+            budget = engine._alloc.num_pages * page_bytes(cfg, engine._ps)
+        n = dropped(tally)
+        name = kv or "bf16"
+        out[name] = {"tokens": n_tok, "seconds": seconds,
+                     "tokens_per_s": n_tok / seconds, "launches": launches,
+                     "dropped": n, "assignments": tally["assignments"],
+                     "usable_pages": engine._alloc.usable,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        print(f"[moe] serving {name} pages: {n_tok / seconds:.2f} tokens/s, "
+              f"{n} of {tally['assignments']} prefill assignments dropped",
+              flush=True)
+        check(n > 0, f"MoE serving ({name}): no assignment was dropped, "
+              "capacity never bound")
+        del engine
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_block_share(events, step_busy_ms):
+    """The device time of one profiled training step spent in
+    ``_moe_block``: the kernels launched inside its "moe_block" ranges
+    (the forward and the remat recompute), and those of the backward
+    nodes whose sequence numbers the forward's ops inside those ranges
+    carry (the profiler's forward-backward link). A backward node's
+    recompute of a whole layer runs inside a "decoder_layer" range and
+    counts only for its MoE part. Returns (ms, share of
+    ``step_busy_ms``)."""
+    import re
+    backward = re.compile(r"Backward\d*$")
+
+    def owner(e):
+        """The innermost "moe_block" / "decoder_layer" range or backward
+        node around e, and whether e runs inside the backward."""
+        found, in_bwd = None, False
+        while e is not None:
+            if found is None and (e.name in ("moe_block", "decoder_layer")
+                                  or backward.search(e.name)):
+                found = e
+            in_bwd |= e.name.startswith("autograd::engine::evaluate_function")
+            e = e.cpu_parent
+        return found, in_bwd
+
+    from torch.autograd import DeviceType
+    events = [e for e in events if e.device_type != DeviceType.CUDA]
+    seqs = set()
+    for e in events:
+        o, in_bwd = owner(e)
+        if o is not None and o.name == "moe_block" and not in_bwd \
+                and getattr(e, "sequence_nr", -1) >= 0:
+            seqs.add(e.sequence_nr)
+    us = 0.0
+    for e in events:        # a host op's self device time: its kernels
+        dev = e.self_device_time_total
+        if dev <= 0:
+            continue
+        o, _ = owner(e)
+        if o is not None and (o.name == "moe_block" or (
+                backward.search(o.name) and o.sequence_nr in seqs)):
+            us += dev
+    return us / 1e3, us / 1e3 / step_busy_ms if step_busy_ms else 0.0
+
+
+@contextlib.contextmanager
+def annotated_layers():
+    """Name the device work of every decoder layer and MoE block in a
+    profile: "decoder_layer" and "moe_block" ranges around the calls."""
+    import torch
+    from paddle_tpu_torch.models import llama as L
+    orig_layer, orig_block = L._decoder_layer, L._moe_block
+
+    def layer(*a, **kw):
+        with torch.profiler.record_function("decoder_layer"):
+            return orig_layer(*a, **kw)
+
+    def block(*a, **kw):
+        with torch.profiler.record_function("moe_block"):
+            return orig_block(*a, **kw)
+
+    L._decoder_layer, L._moe_block = layer, block
+    try:
+        yield
+    finally:
+        L._decoder_layer, L._moe_block = orig_layer, orig_block
+
+
+@contextlib.contextmanager
+def recorded_aux():
+    """Every ``_moe_block``'s aux loss (detached, on the device) while the
+    block runs."""
+    from paddle_tpu_torch.models import llama as L
+    orig = L._moe_block
+    seen = []
+
+    def block(*a, **kw):
+        out, aux = orig(*a, **kw)
+        seen.append(aux.detach())
+        return out, aux
+
+    L._moe_block = block
+    try:
+        yield seen
+    finally:
+        L._moe_block = orig
+
+
+def moe_training(cfg, device="cuda"):
+    """Phase 10's training: (a) one full-width MoE layer through K1/K2
+    against the plain attention (``layer_check``, routing replayed); (b)
+    the bf16 loss against f32 weights within MOE_LOSS_REL_TOL; (c) five
+    steps of ``LlamaTrainStep`` at B=1, T=2048 under AdamW(LinearWarmup(
+    CosineAnnealingDecay)) with bf16 moments, remat=True: finite losses,
+    every layer's aux finite in [1, E], the rate moving between steps,
+    flash_fwd 2·L and flash_bwd L launches a step; tokens/s, peak memory,
+    one profiled step and the share of its device time in ``_moe_block``.
+    Returns (K1/K2 launches, numbers)."""
+    import torch
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.models.trainer import LlamaTrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lr_sched
+    print(f"[moe train] (a) one MoE layer, D={cfg.hidden_size}, "
+          f"T={TRAIN_T}, K1/K2 vs plain", flush=True)
+    layer_share = layer_check(cfg, device)
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(SEED)
+    toks_np = rng.randint(0, cfg.vocab_size, (1, TRAIN_T)).astype(np.int32)
+    toks = torch.from_numpy(toks_np).to(device)
+    labels = torch.from_numpy(np.roll(toks_np, -1, axis=1)).to(device)
+    params = L.init_params(cfg, seed=SEED, device=device)
+    with torch.no_grad():
+        loss_b = float(L.llama_loss(params, toks, labels, cfg))
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params32 = {k: v.float() for k, v in params.items()}
+        del params
+        loss_f = float(L.llama_loss(params32, toks, labels, cfg32))
+    del params32
+    torch.cuda.empty_cache()
+    rel = abs(loss_b - loss_f) / abs(loss_f)
+    print(f"[moe train] (b) first loss bf16 {loss_b:.6f}, f32 {loss_f:.6f}, "
+          f"relative difference {rel:.2e} (tol {MOE_LOSS_REL_TOL})",
+          flush=True)
+    check(np.isfinite(loss_b), f"MoE bf16 loss {loss_b} not finite")
+    check(rel <= MOE_LOSS_REL_TOL, f"MoE bf16 loss {loss_b} vs f32 {loss_f}")
+
+    sched = lr_sched.LinearWarmup(
+        lr_sched.CosineAnnealingDecay(3e-4, T_max=TRAIN_STEPS),
+        warmup_steps=2, start_lr=3e-5, end_lr=3e-4)
+    opt = AdamW(learning_rate=sched, weight_decay=0.1,
+                moment_dtype=torch.bfloat16)
+    step = LlamaTrainStep(cfg, optimizer=opt, remat=True, seed=SEED,
+                          device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.clear()
+    losses, secs, lrs = [], [], []
+    with recorded_aux() as auxes:
+        for i in range(TRAIN_STEPS):
+            lrs.append(opt.get_lr())
+            t0 = time.perf_counter()
+            losses.append(step(toks, labels))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            sched.step()
+            print(f"[moe train] step {i + 1}: lr {lrs[-1]:.3e}, loss "
+                  f"{float(losses[-1]):.6f}, {secs[-1] * 1e3:.1f} ms",
+                  flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd",
+                                            "flash_bwd_dq", "flash_bwd_dkv")}
+    vals = [float(x) for x in losses]
+    aux = torch.stack(auxes).float().cpu().numpy()
+    n_layers = cfg.num_hidden_layers
+    expect = {"flash_fwd": 2 * n_layers * TRAIN_STEPS,
+              "flash_bwd": n_layers * TRAIN_STEPS,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    med = statistics.median(secs[1:])
+    print(f"[moe train] losses {vals}; layer aux in [{aux.min():.4f}, "
+          f"{aux.max():.4f}] over {aux.size} calls; lrs {lrs}; median step "
+          f"(steps 2-{TRAIN_STEPS}) {med * 1e3:.1f} ms = "
+          f"{TRAIN_T / med:.1f} tokens/s; peak allocated {peak:.2f} GiB; "
+          f"launches {launches} (expected {expect})", flush=True)
+    check(all(np.isfinite(v) for v in vals), f"non-finite MoE loss {vals}")
+    check(bool(np.isfinite(aux).all()) and aux.min() >= 1.0
+          and aux.max() <= cfg.num_experts,
+          f"MoE aux outside [1, {cfg.num_experts}]: {aux.min()}, "
+          f"{aux.max()}")
+    check(len(set(lrs)) == len(lrs), f"the learning rate did not move: "
+          f"{lrs}")
+    check(launches == expect, f"MoE flash launches {launches} != {expect}")
+    after, prof, events = profile_train_step(step, toks, labels,
+                                             annotated_layers())
+    moe_ms, share = moe_block_share(events, prof["device_busy_ms"])
+    prof.update(moe_block_ms=moe_ms, moe_block_share=share)
+    print(f"[profile] _moe_block {moe_ms:.1f} ms of the step's device time "
+          f"({100 * share:.1f}%); loss after it {after:.6f}", flush=True)
+    check(np.isfinite(after), f"MoE loss after the profiled step {after}")
+    del step, opt
+    torch.cuda.empty_cache()
+    return launches, {"losses": vals, "lrs": lrs, "step_ms": med * 1e3,
+                      "tokens_per_s": TRAIN_T / med, "peak_gib": peak,
+                      "aux": [float(aux.min()), float(aux.max())],
+                      "loss_rel": rel, "layer_share": layer_share,
+                      "profile": prof}
+
+
+def moe_phase(device="cuda"):
+    """Phase 10: the MoE Llama family at Mixtral-8x7B's width (random
+    weights, seed 0): the burst oracle and the f32 engine identity at
+    MOE_CHECK_LAYERS, serving over bf16 and int8 pages at
+    MOE_SERVE_LAYERS, training at MOE_TRAIN_LAYERS. Returns ({kernel:
+    launches of the phase's main runs}, numbers)."""
+    import gc
+    import torch
+    from paddle_tpu_torch.models.llama import init_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers = {}
+    cfg = moe_config(MOE_CHECK_LAYERS)
+    cfg32 = moe_config(MOE_CHECK_LAYERS, torch.float32)
+    params = init_params(cfg, seed=SEED, device=device)
+    params32 = {k: v.float() for k, v in params.items()}
+    print(f"[moe] Mixtral-8x7B width (D={cfg.hidden_size}, "
+          f"F={cfg.intermediate_size}, H={cfg.num_attention_heads}, "
+          f"KV={cfg.num_key_value_heads}, E={cfg.num_experts}, "
+          f"k={cfg.num_experts_per_tok}), {MOE_CHECK_LAYERS} layers: the "
+          f"burst oracle and the f32 engine identity", flush=True)
+    numbers["burst_oracle"] = moe_burst_oracle(cfg, params, cfg32, params32,
+                                               device)
+    del params
+    torch.cuda.empty_cache()
+    n_tok, k3_f32, drops = moe_engine_identity(cfg32, params32, device)
+    numbers["f32_identity"] = {"tokens": n_tok, "dropped": drops}
+    del params32
+    torch.cuda.empty_cache()
+    serving = moe_serving(moe_config(MOE_SERVE_LAYERS), device)
+    numbers["serving"] = serving
+    flash, numbers["training"] = moe_training(moe_config(MOE_TRAIN_LAYERS),
+                                              device)
+    launches = {"ragged_paged_attention": serving["bf16"]["launches"]["rpa"]
+                + k3_f32,
+                "ragged_paged_attention_tile":
+                    serving["bf16"]["launches"]["tile"],
+                "ragged_paged_attention_quant":
+                    serving["int8"]["launches"]["rpa"],
+                "ragged_paged_attention_quant_tile":
+                    serving["int8"]["launches"]["tile"],
+                "flash_fwd": flash["flash_fwd"],
+                "flash_bwd": flash["flash_bwd"],
+                "bsa_fwd": 0, "bsa_bwd": 0}
+    for kernel, n in launches.items():
+        if not kernel.startswith("bsa"):
+            check(n > 0, f"phase 10 never launched {kernel}")
+    print(f"[moe] launches over the phase's runs: {launches}", flush=True)
+    return launches, numbers
+
+
 FLASH_REPLACES = {
     "flash_fwd": "paddle_tpu/ops/flash_attention.py:316",
     # one kernel for both of K2's (dq_kernel :201, dkv_kernel :243)
@@ -2658,6 +3260,12 @@ def main() -> int:
     for rec in records:
         rec["launches_prefix_spec"] = p9[rec["name"]]
     phase("prefix and speculative serving", t0)
+    # 10. the MoE family at Mixtral-8x7B's width: serving and training
+    t0 = time.perf_counter()
+    p10, _ = moe_phase()
+    for rec in records:
+        rec["launches_moe"] = p10[rec["name"]]
+    phase("moe", t0)
     phase("total", t_all)
     print(json.dumps({"kernels": records}))
     print(card)

@@ -32,6 +32,11 @@ whole pages); a suffix prefill is ``_ragged_prefill_phase`` with
 speculative segment row by row and reads it back through the ragged
 kernel with ``q_len = n_tok``, ``kv_len = start + n_tok``.
 
+MoE configs: every function here runs the FFN (``llama._mlp``) over all
+rows of its launch — dead lanes, pad rows and ``q_len = 0`` slots
+included — exactly as the JAX package does, since an expert's capacity
+couples the rows routed together.
+
 Waiting for later slices: the gather read path (and its quantized read,
 the gather branch of ``llama_paged_verify``, ``llama_paged_prefill_suffix``),
 page export/import and the sharded pool (ROADMAP Queue 1 items 4, 7, 8).
@@ -155,12 +160,17 @@ def _layer_pools(cache, l, quant):
 
 def _ragged_decode_step_slots(params, cache, block_table, pos, tok,
                               config: LlamaConfig,
-                              kv_dtype: str | None = None):
+                              kv_dtype: str | None = None,
+                              attn=_ragged_attn):
     """One single-token step over all slots: slot b writes its K/V row at
     ``pos[b]`` through its block table (in place; quantized first when
     ``kv_dtype`` is set, payload and scale at the same index), then the
     ragged kernel reads its ceil((pos+1)/page_size) live pages (q_len 1,
-    kv_len pos+1). Returns next-token logits [B, V] f32."""
+    kv_len pos+1). ``attn`` is the pool read (``_ragged_attn``'s
+    signature); an oracle passes the plain version. Every slot's row,
+    free slots' included, goes through the FFN (an MoE config routes all
+    B rows together, as the JAX package does). Returns next-token logits
+    [B, V] f32."""
     c = config
     layer_p, other = split_layer_params(params)
     B = tok.shape[0]
@@ -187,8 +197,8 @@ def _ragged_decode_step_slots(params, cache, block_table, pos, tok,
             vsp[page, row] = vsu
         kp[page, row] = ku
         vp[page, row] = vu
-        att = _ragged_attn(q, kp, vp, block_table, one, kv_lens,
-                           page_size=ps, ksc=ksp, vsc=vsp)
+        att = attn(q, kp, vp, block_table, one, kv_lens, page_size=ps,
+                   ksc=ksp, vsc=vsp)
         y = x + (att.reshape(B, 1, -1) @ lp["wo"])
         x = _mlp(y, lp, c)
     return lm_head_logits(x[:, 0, :], other, c)
@@ -196,7 +206,7 @@ def _ragged_decode_step_slots(params, cache, block_table, pos, tok,
 
 def _ragged_prefill_phase(params, cache, block_table, new_tokens, new_lens,
                           prefill_start, config: LlamaConfig,
-                          kv_dtype: str | None = None):
+                          kv_dtype: str | None = None, attn=_ragged_attn):
     """Ragged prompt forward for every newly admitted slot at once.
 
     new_tokens [B, Tmax] (the engine's one static width), new_lens [B]
@@ -209,8 +219,12 @@ def _ragged_prefill_phase(params, cache, block_table, new_tokens, new_lens,
     rows quantize first (pad rows of zeros give zero payloads, as in the
     JAX package) and their scales land at the same indexes. The ragged
     kernel then reads them back causally (q_len = new_lens, kv_len =
-    prefill_start + new_lens). Returns (last-position logits [B, V],
-    cache)."""
+    prefill_start + new_lens); ``attn`` as in
+    ``_ragged_decode_step_slots``. All B·Tmax rows go through the FFN,
+    the dead lanes of a short prompt and the zero rows of a slot that is
+    not prefilling included: an MoE config routes them together with the
+    live rows, which the JAX package does too, so capacity and drops
+    come out the same. Returns (last-position logits [B, V], cache)."""
     c = config
     layer_p, other = split_layer_params(params)
     B, Tmax = new_tokens.shape
@@ -250,8 +264,8 @@ def _ragged_prefill_phase(params, cache, block_table, new_tokens, new_lens,
             vsp[wt] = vsrows.reshape(shape[:-1])
         kp[wt] = krows.reshape(shape)
         vp[wt] = vrows.reshape(shape)
-        att = _ragged_attn(q, kp, vp, block_table, lens32, kv_lens,
-                           page_size=ps, ksc=ksp, vsc=vsp)
+        att = attn(q, kp, vp, block_table, lens32, kv_lens, page_size=ps,
+                   ksc=ksp, vsc=vsp)
         y = x + (att.reshape(B, Tmax, -1) @ lp["wo"])
         x = _mlp(y, lp, c)
     last = x[torch.arange(B, device=dev), (lens32 - 1).clamp(min=0).long()]
@@ -263,7 +277,7 @@ def llama_ragged_burst(params, cache, block_table, pos, tok, done, limit,
                        generator, config: LlamaConfig, n: int,
                        has_prefill: bool, temperature: float = 0.0,
                        top_k: int = 0, pad_id: int = 0,
-                       kv_dtype: str | None = None):
+                       kv_dtype: str | None = None, attn=_ragged_attn):
     """One mixed prefill+decode burst.
 
     Slots with ``new_lens[b] > 0`` first prefill their prompt (ragged, any
@@ -272,7 +286,8 @@ def llama_ragged_burst(params, cache, block_table, pos, tok, done, limit,
     stops on ``eos_id`` or when its position reaches ``limit``; finished
     slots emit ``pad_id`` and freeze. All state stays on the device.
     ``kv_dtype`` ("int8" | "fp8" | None) is the cache's page codec (see
-    ``init_paged_kv_cache``).
+    ``init_paged_kv_cache``); ``attn`` is the pool read of every layer
+    (the ragged kernel; an oracle passes the plain version).
 
     Returns (cache, pos, tok, done, emitted [n, B], firsts [B]) — firsts
     holds each newly admitted slot's prefill token (pad_id elsewhere)."""
@@ -281,7 +296,7 @@ def llama_ragged_burst(params, cache, block_table, pos, tok, done, limit,
         if has_prefill:
             logits, cache = _ragged_prefill_phase(
                 params, cache, block_table, new_tokens, new_lens,
-                prefill_start, config, kv_dtype=kv_dtype)
+                prefill_start, config, kv_dtype=kv_dtype, attn=attn)
             first = _sample(logits, temperature, top_k, generator)
             is_new = new_lens > 0
             firsts = torch.where(is_new, first, firsts)
@@ -294,7 +309,7 @@ def llama_ragged_burst(params, cache, block_table, pos, tok, done, limit,
         for _ in range(n):
             logits = _ragged_decode_step_slots(params, cache, block_table,
                                                pos, tok, config,
-                                               kv_dtype=kv_dtype)
+                                               kv_dtype=kv_dtype, attn=attn)
             nxt = _sample(logits, temperature, top_k, generator)
             emitted.append(torch.where(done, torch.full_like(nxt, pad_id),
                                        nxt))

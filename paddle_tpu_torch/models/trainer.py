@@ -5,9 +5,12 @@ branch).
     step = LlamaTrainStep(config, optimizer=AdamW(...), device="cuda")
     loss = step(tokens, labels)        # forward, backward, update
 
-Each call runs ``llama_loss`` forward, ``loss.backward()`` (attention
-through kernels K1/K2 on the card), then ``apply_gradients`` in place, and
-returns the loss as a device tensor without a host sync.
+Each call runs ``llama_loss`` forward (with an MoE config its aux loss
+included), ``loss.backward()`` (attention through kernels K1/K2 on the
+card), then ``apply_gradients`` in place at the optimizer's current
+``get_lr()`` (a float, or an ``LRScheduler``'s value, rounded to f32 as
+the JAX step receives it), and returns the loss as a device tensor
+without a host sync.
 
 Parameters stay in the JAX package's layer-stacked layout (``params``),
 but autograd sees one leaf per layer and matrix: ``stacked[l]`` detached,
@@ -20,7 +23,7 @@ the same way and updated through per-layer views.
 
 A mesh, microbatches and pipeline schedules are not ported (ROADMAP
 Queue 1 item 8), nor the span, metrics, fleet and device-trace hooks of
-the JAX step (Queue 1 item 4).
+the JAX step (Queue 1 item 2, after item 5's observability modules).
 """
 from __future__ import annotations
 
@@ -100,6 +103,7 @@ class LlamaTrainStep:
         tokens = self._ints(tokens)
         labels = self._ints(labels)
         self._step_i += 1
+        lr = float(np.float32(self.optimizer.get_lr()))
         loss = L.llama_loss(self._leaves, tokens, labels, self.config,
                             remat=self.remat, loss_chunk=self.loss_chunk)
         loss.backward()
@@ -107,7 +111,7 @@ class LlamaTrainStep:
                  for k, v in self._leaves.items()}
         self.optimizer.apply_gradients(grads, self._leaves,
                                        self._state_views,
-                                       lr=self.optimizer.get_lr(),
+                                       lr=lr,
                                        step=self._step_i)
         del grads
         for v in self._leaves.values():

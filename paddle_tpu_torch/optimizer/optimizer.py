@@ -24,9 +24,10 @@ Every parameter is decayed, norm weights included, as the JAX functional
 path does. ``lr`` is taken as an f32 scalar, as ``LlamaTrainStep`` passes
 it to the JAX step.
 
-Learning-rate schedules (``optimizer/lr.py``), master weights
-(``multi_precision``) and the eager ``step()`` API over ``parameters`` are
-not ported (ROADMAP Queue 1): asking for them raises.
+``learning_rate`` is a float or an ``LRScheduler`` (``lr.py``), whose
+current value ``get_lr()`` returns. Master weights (``multi_precision``)
+and the eager ``step()`` API over ``parameters`` are not ported (ROADMAP
+Queue 1 item 9): asking for them raises.
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ import numbers
 
 import numpy as np
 import torch
+
+from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
 
@@ -51,16 +54,17 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
                  name=None):
-        if not isinstance(learning_rate, numbers.Real):
-            raise NotImplementedError(
-                "learning-rate schedules (optimizer/lr.py) are not ported "
-                "(ROADMAP Queue 1); pass a float")
+        if not isinstance(learning_rate, (numbers.Real, LRScheduler)):
+            raise TypeError(f"learning_rate must be a float or an "
+                            f"LRScheduler, not {type(learning_rate)}")
         if parameters is not None or multi_precision:
             raise NotImplementedError(
                 "the eager step() API over a parameters list and master "
                 "weights (multi_precision) are not ported (ROADMAP Queue 1 "
                 "item 9); use init_state/apply_gradients")
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate \
+            if isinstance(learning_rate, LRScheduler) \
+            else float(learning_rate)
         self._grad_clip = grad_clip
         if weight_decay is None:
             self._weight_decay = 0.0
@@ -73,7 +77,14 @@ class Optimizer:
 
     # ---------------- lr ----------------
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
+
+    def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._learning_rate = float(value)
 
     # ---------------- update rule (override) ----------------
     def _init_one(self, p) -> dict:

@@ -73,11 +73,15 @@ def test_init_params_names_shapes_and_std(models):
 def test_forward_logits_match(models):
     jcfg, jparams, tcfg, tparams = models
     toks = _tokens(0, (2, 12))
-    ref, _ = jl.llama_forward(jparams, jnp.asarray(toks), jcfg, remat=False)
-    out = tl.llama_forward(tparams, torch.from_numpy(toks), tcfg)
+    ref, ref_aux = jl.llama_forward(jparams, jnp.asarray(toks), jcfg,
+                                    remat=False)
+    out, aux = tl.llama_forward(tparams, torch.from_numpy(toks), tcfg)
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                atol=TOL)
+    # a dense config's aux: an f32 zero on both sides
+    assert aux.dtype == torch.float32 and aux.dim() == 0
+    assert float(aux) == float(ref_aux) == 0.0
 
 
 def test_prefill_then_decode_step_match(models):

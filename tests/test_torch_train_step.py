@@ -308,7 +308,12 @@ def test_train_step_rejects_what_is_not_ported():
         AdamW(amsgrad=True)
     with pytest.raises(NotImplementedError, match="not ported"):
         AdamW(multi_precision=True)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.llama_loss({}, torch.zeros((1, 4), dtype=torch.int32),
-                      torch.zeros((1, 4), dtype=torch.int32),
-                      tl.LlamaConfig.tiny(num_experts=4))
+    # what is left of the training path's refusals: pipeline schedules,
+    # the eager step() over a parameters list, an unknown remat schedule
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        LlamaTrainStep(tcfg, pp_schedule="1f1b", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        AdamW(parameters=[torch.zeros(2)])
+    with pytest.raises(ValueError, match="remat"):
+        tl.llama_trunk(torch.zeros((1, 4, tcfg.hidden_size)), {}, tcfg,
+                       remat="dots")

@@ -30,10 +30,11 @@ the repository. Phases, each failing the run when its check fails:
               element within its own bound
               (``ragged_attention.tolerance``);
 4. serving  — greedy Llama-2-7B (full width, random weights from a seed,
-              bf16) through ContinuousBatcher's ragged path: 8 requests, 4
+              bf16) through ContinuousBatcher's ragged layout: 8 requests, 4
               slots, admissions mid-flight. Checks K3's launch counts
               (rpa_kernel once per layer per decode step, rpa_tile_kernel
-              once per layer per prefill-carrying burst), the drained pool, and every emitted token against a
+              once per layer per prefill-carrying burst), the drained
+              pool, and every emitted token against a
               teacher-forced dense forward of the same weights (bf16, and
               again with the whole engine in f32; the dense forward runs
               the flash kernel K1); profiles one decode burst. Then the
@@ -139,10 +140,42 @@ the repository. Phases, each failing the run when its check fails:
               step, tokens/s, peak memory, and the share of a profiled
               step's device time in _moe_block. Phase 5 times K3/K4 at
               its group-4 shapes.
+11. paged   — the engine's default layout, ``kv_layout="paged"`` (the
+              gather read), and ``"dense"``, with the serving precisions:
+              Llama-2-7B at full width and depth (random weights, seed 0),
+              every cache NaN-poisoned first (``paged_runs``). Phase 4's
+              traffic on ``"paged"`` over bf16 pages, then int8 and fp8
+              pages in the bf16 pool's byte budget; in f32 (its first 4
+              requests) on ``"paged"``, ``"dense"`` and ``"ragged"``; on
+              ``"dense"`` in bf16; weight-only int8 (``precision="int8"``)
+              on ``"paged"`` and ``"ragged"``. Phase 9's prefix traffic on
+              ``"paged"`` (suffix prefills through
+              ``llama_paged_prefill_suffix``) and its speculative traffic
+              with the f32 self-draft (the gather verify). Each run: every
+              request complete, K1 once per layer per prefill (a suffix
+              prefill attends without it; the draft's prefills add theirs)
+              and K3/K4 never on the gather and dense layouts (phase 4's
+              counts and no K1 on the ragged one), admissions mid-flight,
+              the pool drained (but for the prefix index's pages), every
+              token within its bound of a teacher-forced dense forward
+              (bf16: phase 4's delta, through the codec for int8/fp8
+              pages, the first token against the layout's own prefill;
+              f32: 1e-3 of the best logit; weight-only int8 against the
+              forward of its own dequantized weights); the prefix
+              counters equal phase 9's ragged run's, the system prompt's
+              pages bitwise unchanged; the weight-only tree at 0.45–0.55
+              of bf16's bytes. Prints tokens/s, page buckets, the peak
+              memory of one step, the f32 requests token-identical to the
+              ragged engine's, one profiled gather decode burst, and K1
+              at the prefill's shape (B=1, L=S=512, H=32, D=128, causal)
+              beside its bound, its plain version and SDPA. The planted
+              gather faults of tools/serve_fault_check.py fail these
+              checks.
 
 The last lines are the kernels' JSON record (each kernel's launches by
 phase 9's serves as ``launches_prefix_spec``, by phase 10's runs as
-``launches_moe``), the card line, and
+``launches_moe``, by phase 11's as ``launches_paged``; K1's time at the
+prefill's shape as ``prefill_slot``), the card line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -576,9 +609,10 @@ def serve_requests(cfg):
 
 def serve(cfg, params, device="cuda", kv_dtype=None, pool_hbm_bytes=None,
           prepare=None):
-    """Serve 8 requests (with ``kv_dtype`` pages, in a pool of
-    ``pool_hbm_bytes`` when given; ``prepare(engine)`` runs before the
-    first request, e.g. ``poison_pool``); returns (engine, requests,
+    """Serve 8 requests on the ragged layout (with ``kv_dtype`` pages, in
+    a pool of ``pool_hbm_bytes`` when given; ``prepare(engine)`` runs
+    before the first request, e.g. ``poison_pool``); returns (engine,
+    requests,
     results, seconds, mid-flight admission bursts, launches of the path's
     kernels — K3, or K4 with kv_dtype, on rpa_kernel and rpa_tile_kernel
     together —, per-step host seconds by kind)."""
@@ -586,7 +620,8 @@ def serve(cfg, params, device="cuda", kv_dtype=None, pool_hbm_bytes=None,
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
     from paddle_tpu_torch.ops import ragged_attention as ra
     reqs = serve_requests(cfg)
-    engine = ContinuousBatcher(cfg, params, kv_dtype=kv_dtype,
+    engine = ContinuousBatcher(cfg, params, kv_layout="ragged",
+                               kv_dtype=kv_dtype,
                                pool_hbm_bytes=pool_hbm_bytes, device=device,
                                **SERVE_GEOMETRY)
     if prepare is not None:
@@ -646,6 +681,33 @@ def first_token_logits(cfg, params, prompts, device="cuda", kv_dtype=None,
     return logits[:len(prompts)]
 
 
+def gather_first_logits(cfg, params, prompts, device="cuda", kv_dtype=None):
+    """Last-position logits of the gather and dense layouts' prefill
+    (``llama_paged._paged_prefill_logits``: the prompt padded to the 512
+    bucket, K1 in every layer, its pages written into a NaN-poisoned pool
+    with ``kv_dtype`` pages) for each prompt, [len(prompts), V]."""
+    import torch
+    from paddle_tpu_torch.models.llama_paged import (_paged_prefill_logits,
+                                                     init_paged_kv_cache)
+    width = SERVE_GEOMETRY["prompt_buckets"][-1]
+    ps = SERVE_GEOMETRY["page_size"]
+    n = -(-width // ps)
+    cache = init_paged_kv_cache(cfg, 1 + n, ps, kv_dtype=kv_dtype,
+                                device=device)
+    poison_cache_pools(cache)
+    pages = torch.arange(1, 1 + n, dtype=torch.int32, device=device)
+    out = []
+    with torch.no_grad():
+        for p in prompts:
+            toks = torch.zeros(width, dtype=torch.int32)
+            toks[:len(p)] = torch.tensor(p)
+            logits, _ = _paged_prefill_logits(params, cache, toks.to(device),
+                                              pages, len(p), cfg,
+                                              kv_dtype=kv_dtype)
+            out.append(logits[0])
+    return torch.stack(out)
+
+
 def codec_forward(params, tokens, cfg, kv_dtype):
     """``llama_forward`` (flash attention, K1 on the card) with every
     layer's K and V passed through the page codec — quantized per (row,
@@ -671,9 +733,15 @@ def codec_forward(params, tokens, cfg, kv_dtype):
 
 
 def teacher_forced(cfg, params, cfg32, params32, reqs, results,
-                   device="cuda", kv_dtype=None):
+                   device="cuda", kv_dtype=None,
+                   first_logits=first_token_logits, first_plain=False):
     """Dense bf16 forward over prompt + emitted tokens for every request
     (with ``kv_dtype``, K/V through the page codec: ``codec_forward``).
+    ``first_logits`` is the serving path's prefill that the first-token
+    check holds (the ragged prefill phase, or ``gather_first_logits``);
+    ``first_plain``: that prefill attends unquantized K/V (the gather
+    layouts quantize only the pool writes), so the check holds it to the
+    plain dense forward, with that forward's own eps.
 
     Calibration: the dense bf16 path's own distance from an f32 forward of
     the same weights, eps = max |logits_bf16 − logits_f32| over the
@@ -706,25 +774,30 @@ def teacher_forced(cfg, params, cfg32, params32, reqs, results,
              "tokens": 0, "first_err_over_tol": 0.0}
     for i in range(0, len(reqs), 4):
         chunk = list(range(i, min(i + 4, len(reqs))))
-        firsts = first_token_logits(cfg, params,
-                                    [reqs[k][0] for k in chunk], device,
-                                    kv_dtype)
+        firsts = first_logits(cfg, params, [reqs[k][0] for k in chunk],
+                              device, kv_dtype)
         for row, k in enumerate(chunk):
             prompt, _ = reqs[k]
             out = results[k].out
             seq = torch.tensor([prompt + out], device=device)
-            with torch.no_grad():
-                lb = forward(params, seq, cfg)[0]
-                lf = forward(params32, seq, cfg32)[0]
             pos = torch.arange(len(prompt) - 1, len(prompt) - 1 + len(out),
                                device=device)
-            lb, lf = lb[pos], lf[pos]
+            with torch.no_grad():
+                lb = forward(params, seq, cfg)[0][pos]
+                lf = forward(params32, seq, cfg32)[0][pos]
+                if first_plain:
+                    pb = llama_forward(params, seq, cfg)[0][0][pos]
+                    pf = llama_forward(params32, seq, cfg32)[0][0][pos]
             eps = float((lb - lf).abs().max())
             tol = 2 * eps
             delta = 2 * tol
             emitted = torch.tensor(out, device=device)
             gap = lb.max(dim=-1).values - lb.gather(1, emitted[:, None])[:, 0]
-            first_err = float((firsts[row] - lb[0]).abs().max())
+            if first_plain:
+                tol = 2 * float((pb - pf).abs().max())
+                first_err = float((firsts[row] - pb[0]).abs().max())
+            else:
+                first_err = float((firsts[row] - lb[0]).abs().max())
             print(f"  request {k}: prompt {len(prompt)} new {len(out)} "
                   f"eps={eps:.4f} max gap={float(gap.max()):.4f} "
                   f"delta={delta:.4f} first-token |engine-dense|="
@@ -757,8 +830,8 @@ def f32_serving_check(cfg32, params32, reqs, device="cuda"):
     token's dense logit must be within F32_DELTA = 1e-3 of the maximum: a
     masking, paging or indexing fault moves logits by order 1."""
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
-    engine = ContinuousBatcher(cfg32, params32, device=device,
-                               **SERVE_GEOMETRY)
+    engine = ContinuousBatcher(cfg32, params32, kv_layout="ragged",
+                               device=device, **SERVE_GEOMETRY)
     rids = [engine.add_request(p, m) for p, m in reqs[:4]]
     out = engine.run()
     outs = [out[rid] for rid in rids]
@@ -858,8 +931,9 @@ def f32_pool_check(cfg32, params32, reqs, kv_dtype, device="cuda"):
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
     from paddle_tpu_torch.quant.codec import dequantize_lastdim
-    engine = ContinuousBatcher(cfg32, params32, kv_dtype=kv_dtype,
-                               device=device, **SERVE_GEOMETRY)
+    engine = ContinuousBatcher(cfg32, params32, kv_layout="ragged",
+                               kv_dtype=kv_dtype, device=device,
+                               **SERVE_GEOMETRY)
     for prompt, _ in reqs[:4]:
         engine.add_request(prompt, POOL_CHECK_NEW)
     for _ in range(POOL_CHECK_STEPS):
@@ -918,18 +992,19 @@ def f32_pool_check(cfg32, params32, reqs, kv_dtype, device="cuda"):
     return worst
 
 
-def profile_decode_burst(cfg, params, kv_dtype=None):
+def profile_decode_burst(cfg, params, kv_dtype=None, kv_layout="ragged"):
     """torch.profiler over one decode-only burst of a 4-slot engine whose
-    slots hold 500-token prompts (``kv_dtype`` pages): host wall time,
-    device busy time, the device kernels launched, the attention kernel's
-    share (K3, or K4 with kv_dtype), and the kernels that took the most
-    device time."""
+    slots hold 500-token prompts (``kv_dtype`` pages, ``kv_layout``): host
+    wall time, device busy time, the device kernels launched, the
+    attention kernel's share (K3, or K4 with kv_dtype; none on the gather
+    layout), and the kernels that took the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
     rng = np.random.default_rng(SEED + 3)
-    engine = ContinuousBatcher(cfg, params, kv_dtype=kv_dtype, device="cuda",
+    engine = ContinuousBatcher(cfg, params, kv_layout=kv_layout,
+                               kv_dtype=kv_dtype, device="cuda",
                                **SERVE_GEOMETRY)
     for _ in range(4):
         engine.add_request(rng.integers(1, cfg.vocab_size, 500).tolist(), 40)
@@ -954,10 +1029,13 @@ def profile_decode_burst(cfg, params, kv_dtype=None):
     att_ms = sum(r[0] for r in rows if "rpa_kernel" in r[2])
     att_n = sum(r[1] for r in rows if "rpa_kernel" in r[2])
     att = "K4" if kv_dtype else "K3"
+    if kv_layout != "ragged":
+        att = "attention kernel (none on this layout)"
     pages = f"{kv_dtype} pages" if kv_dtype else "bf16 pages"
     print(f"[profile] one decode-only burst of {engine.burst} steps, "
-          f"{pages}: host wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} "
-          f"ms ({100 * busy_ms / wall_ms:.1f}%), {launched} device kernels, "
+          f"{pages}, {kv_layout} layout: host wall {wall_ms:.2f} ms, "
+          f"device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {launched} device kernels, "
           f"{att} {att_ms:.3f} ms over {att_n} launches", flush=True)
     for ms, n, key in rows[:8]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
@@ -1676,8 +1754,9 @@ def serving_phases(cfg):
         q["f32_pool_check"] = f32_pool_check(cfg32, params32, reqs, kv)
     del params32
     torch.cuda.empty_cache()
-    bf16_pool = ContinuousBatcher(cfg, params, pool_hbm_bytes=budget,
-                                  device="cuda", **SERVE_GEOMETRY)
+    bf16_pool = ContinuousBatcher(cfg, params, kv_layout="ragged",
+                                  pool_hbm_bytes=budget, device="cuda",
+                                  **SERVE_GEOMETRY)
     bf16_usable = bf16_pool._alloc.usable
     del bf16_pool
     for kv, q in quant.items():
@@ -2223,19 +2302,27 @@ def drive(engine, waves, after_first_step=None):
     end, wave i+1 added after one more step (``after_first_step`` runs
     right after the first). Each step is recorded: whether it was a
     speculative step, whether it carried a suffix prefill (a prefix hit
-    with prefill_start > 0), its K3/K4 launches by kernel, and after a
-    speculative step the most pages a live slot maps beyond
-    pages_for(pos) (0 once the rewind freed the rejected tail). Returns
-    (requests in order, results in order, seconds, step records, K1
-    launches of the whole drive)."""
+    with prefill_start > 0), whether it admitted a request while another
+    was decoding, its K3/K4 launches by kernel and its K1 launches, the
+    most device memory it allocated beyond what it started with (on a
+    card), and after a speculative step the most pages a live slot maps
+    beyond pages_for(pos) (0 once the rewind freed the rejected tail).
+    Returns (requests in order, results in order, seconds, step records,
+    K1 launches of the whole drive)."""
     import collections
+    import torch
     from paddle_tpu_torch.inference.paging import pages_for
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import ragged_attention as ra
     reqs, rids, steps, finished = [], [], [], {}
+    on_card = engine._dev.type == "cuda"
 
     def step():
         st0, l0 = dict(engine.stats), collections.Counter(ra.LAUNCHES)
+        k10, busy = fa.LAUNCHES["flash_fwd"], engine.active
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
         engine.step()
         st = engine.stats
 
@@ -2245,7 +2332,12 @@ def drive(engine, waves, after_first_step=None):
         rec = {"spec": d("spec_steps") > 0,
                "suffix": d("prefix_hits") > d("prefix_resumes")
                and d("prefill_bursts") > 0,
+               "prefill": d("prefills") > 0,
+               "midflight": bool(busy) and d("prefills") > 0,
                "launches": collections.Counter(ra.LAUNCHES) - l0,
+               "k1": fa.LAUNCHES["flash_fwd"] - k10,
+               "peak_bytes": (torch.cuda.max_memory_allocated() - mem0
+                              if on_card else 0),
                "surplus": 0}
         if rec["spec"]:
             rec["surplus"] = max(
@@ -2304,12 +2396,13 @@ def f32_gaps(cfg32, params32, reqs, outs, device="cuda"):
 
 
 def tokens_case(cfg, params, cfg32, params32, reqs, results, kv_dtype,
-                device="cuda"):
+                device="cuda", kv_layout="ragged"):
     """[worst gap over its bound, the same as a share, note]: an f32 engine
     within F32_DELTA of the dense f32 forward (``f32_gaps``); a bf16
     engine within phase 4's DELTA of the teacher-forced dense bf16 forward
     (K/V through the page codec for quantized pages: ``teacher_forced``,
-    which also fails the run past it)."""
+    which also fails the run past it; its first-token check holds the
+    ``kv_layout``'s prefill)."""
     import torch
     if cfg.dtype == torch.float32:
         gap, agree, total = f32_gaps(cfg32, params32, reqs,
@@ -2317,8 +2410,14 @@ def tokens_case(cfg, params, cfg32, params32, reqs, results, kv_dtype,
         return [gap, gap / F32_DELTA,
                 f"max gap vs dense f32 (delta {F32_DELTA}), argmax agree "
                 f"{agree}/{total}"]
-    tf = teacher_forced(cfg, params, cfg32, params32, reqs, results, device,
-                        kv_dtype=kv_dtype)
+    if kv_layout == "ragged":
+        tf = teacher_forced(cfg, params, cfg32, params32, reqs, results,
+                            device, kv_dtype=kv_dtype)
+    else:
+        tf = teacher_forced(cfg, params, cfg32, params32, reqs, results,
+                            device, kv_dtype=kv_dtype,
+                            first_logits=gather_first_logits,
+                            first_plain=kv_dtype is not None)
     return [tf["gap_over_delta"], tf["gap_over_delta"],
             f"worst gap over delta vs teacher-forced dense bf16, eps "
             f"{tf['eps']:.4f}, argmax agree {tf['argmax_agree']}/"
@@ -2326,13 +2425,17 @@ def tokens_case(cfg, params, cfg32, params32, reqs, results, kv_dtype,
 
 
 def engine_cases(engine, reqs, results, steps):
-    """The checks every phase-9 run must pass, as {case: [value, share of
-    its bound, note]}: every request complete with its budget; K3 (K4 over
-    quantized pages) launched once per layer per decode step, per
-    prefill-carrying burst and per speculative step, across its two
-    kernels, and the other pool type's kernels never; each speculative
-    step one launch per layer (its verify); the pool drained but for the
-    prefix index's pages, each held by the index alone."""
+    """The checks every serving run of phases 9 and 11 must pass, as
+    {case: [value, share of its bound, note]}: every request complete with
+    its budget; on the ragged layout K3 (K4 over quantized pages) launched
+    once per layer per decode step, per prefill-carrying burst and per
+    speculative step, across its two kernels, and the other pool type's
+    kernels never, on the gather and dense layouts K3/K4 never; K1 once
+    per layer per prefill of the gather and dense layouts (a suffix
+    prefill attends without it) and per draft layer per draft prefill, and
+    nowhere else; each speculative step one K3/K4 launch per layer (its
+    ragged verify) or none (the gather verify); the pool drained but for
+    the prefix index's pages, each held by the index alone."""
     quant = engine._kv_dtype is not None
     mine = "ragged_paged_attention" + ("_quant" if quant else "")
     L = engine._cfg.num_hidden_layers
@@ -2341,7 +2444,14 @@ def engine_cases(engine, reqs, results, steps):
                 if k in (mine, mine + "_tile")) for s in steps]
     total = sum(sum(s["launches"].values()) for s in steps)
     expect = L * (st["decode_steps"] + st["prefill_bursts"]
-                  + st.get("spec_steps", 0))
+                  + st.get("spec_steps", 0)) if engine._ragged else 0
+    k1 = sum(s["k1"] for s in steps)
+    k1_expect = 0 if engine._ragged else L * (
+        st["prefills"] - st.get("prefix_hits", 0)
+        + st.get("prefix_resumes", 0))
+    if engine._spec is not None:
+        k1_expect += engine._spec.draft_layers \
+            * engine._spec.stats["draft_prefills"]
     verify = [n for n, s in zip(ours, steps) if s["spec"]]
     complete = all(r is not None and r.done and len(r.out) == m
                    for r, (_, m) in zip(results, reqs))
@@ -2352,16 +2462,20 @@ def engine_cases(engine, reqs, results, steps):
     cases = {
         "complete": [sum(len(r.out) for r in results if r is not None),
                      exact(complete), "tokens, every budget met"],
-        "launches": [sum(ours), exact(sum(ours) == expect == total),
-                     f"expected {expect}; the other pool type's kernels "
-                     f"{total - sum(ours)}"],
+        "launches": [sum(ours) + k1,
+                     exact(sum(ours) == expect == total
+                           and k1 == k1_expect),
+                     f"K3/K4 {sum(ours)} (expected {expect}; the other "
+                     f"pool type's kernels {total - sum(ours)}), K1 {k1} "
+                     f"(expected {k1_expect})"],
         "pool": [engine.pages_in_use, exact(pool_ok),
                  f"pages in use after the drain; the index holds "
                  f"{len(held)}, each at refcount 1"]}
     if engine._spec is not None:
+        per = L if engine._ragged else 0
         cases["verify launches"] = [
-            max(verify, default=0), exact(all(n == L for n in verify)),
-            f"per speculative step ({len(verify)} steps), one per layer"]
+            max(verify, default=0), exact(all(n == per for n in verify)),
+            f"K3/K4 per speculative step ({len(verify)} steps), {per}"]
     return cases
 
 
@@ -2393,19 +2507,21 @@ def prefix_requests(cfg):
 
 
 def prefix_leg(cfg, params, cfg32, params32, kv_dtype=None,
-               pool_hbm_bytes=None, shared=True, device="cuda"):
+               pool_hbm_bytes=None, shared=True, kv_layout="ragged",
+               device="cuda"):
     """One serve of the prefix traffic (``shared=False``: without the
     index, for comparison) on a NaN-poisoned pool, and its checks:
     ``engine_cases``; with the index also at least 7 hits, 1 resume and 1
     copy-on-write, the system prompt's 24 pages bitwise as the first
-    prefill wrote them (and still indexed), and for a bf16 model
-    rpa_tile_kernel (K4's with quantized pages) launched by a burst with
-    prefill_start > 0; every token within its bound (``tokens_case``).
-    Returns (cases, numbers)."""
+    prefill wrote them (and still indexed), and for a bf16 model on the
+    ragged layout rpa_tile_kernel (K4's with quantized pages) launched by
+    a burst with prefill_start > 0; every token within its bound
+    (``tokens_case``). Returns (cases, numbers)."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
     engine = ContinuousBatcher(
-        cfg, params, kv_dtype=kv_dtype, pool_hbm_bytes=pool_hbm_bytes,
+        cfg, params, kv_layout=kv_layout, kv_dtype=kv_dtype,
+        pool_hbm_bytes=pool_hbm_bytes,
         prefix_cache_pages=PREFIX_CACHE_PAGES if shared else None,
         device=device, **SERVE_GEOMETRY)
     poison_pool(engine)
@@ -2448,7 +2564,7 @@ def prefix_leg(cfg, params, cfg32, params32, kv_dtype=None,
             "shared pages": [len(pages), exact(same and indexed),
                              "the system prompt's pages bitwise as its "
                              "prefill wrote them, and still indexed"]})
-        if cfg.dtype != torch.float32:
+        if cfg.dtype != torch.float32 and engine._ragged:
             cases["suffix tile launch"] = [
                 max(suffix_tile, default=0),
                 exact(any(n >= L for n in suffix_tile)),
@@ -2457,7 +2573,7 @@ def prefix_leg(cfg, params, cfg32, params32, kv_dtype=None,
     del engine, snap
     torch.cuda.empty_cache()
     cases["tokens"] = tokens_case(cfg, params, cfg32, params32, reqs,
-                                  results, kv_dtype, device)
+                                  results, kv_dtype, device, kv_layout)
     n_tok = sum(len(r.out) for r in results if r is not None)
     rows = sum(len(p) for p, _ in reqs) - st.get("prefix_tokens_shared", 0)
     return cases, {"tokens": n_tok, "seconds": seconds,
@@ -2486,20 +2602,23 @@ def spec_requests(cfg):
 
 
 def spec_leg(cfg, params, cfg32, params32, draft_layers=None,
-             kv_dtype=None, pool_hbm_bytes=None, device="cuda"):
+             kv_dtype=None, pool_hbm_bytes=None, kv_layout="ragged",
+             device="cuda"):
     """One serve of the speculative traffic on a NaN-poisoned pool with a
     ``draft_layers``-layer draft (None: plain greedy, no draft), and its
     checks: ``engine_cases``; with a draft also speculative steps run,
     the rewind left no slot a page past pages_for(pos) after any of them,
-    K1 launched once per draft layer per draft prefill; for an f32
+    K1 launched once per draft layer per draft prefill (beside the gather
+    layout's target prefills, which ``engine_cases`` counts); for an f32
     self-draft the accepted share at least MIN_ACCEPTANCE; every token
     within its bound (``tokens_case``). Returns (cases, numbers)."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatcher
     engine = ContinuousBatcher(
-        cfg, params, kv_dtype=kv_dtype, pool_hbm_bytes=pool_hbm_bytes,
-        spec_decode=draft_layers is not None, spec_k=SPEC_K,
-        spec_draft_layers=draft_layers, device=device, **SERVE_GEOMETRY)
+        cfg, params, kv_layout=kv_layout, kv_dtype=kv_dtype,
+        pool_hbm_bytes=pool_hbm_bytes, spec_decode=draft_layers is not None,
+        spec_k=SPEC_K, spec_draft_layers=draft_layers, device=device,
+        **SERVE_GEOMETRY)
     poison_pool(engine)
     reqs, results, seconds, steps, k1 = drive(engine, spec_requests(cfg))
     st = dict(engine.stats)
@@ -2507,6 +2626,9 @@ def spec_leg(cfg, params, cfg32, params32, draft_layers=None,
     if draft_layers is not None:
         draft = engine._spec.stats
         surplus = max(s["surplus"] for s in steps)
+        # the draft prefills in speculative steps; the gather layout's
+        # target prefills (K1 too) in the others
+        k1_draft = sum(s["k1"] for s in steps if s["spec"])
         cases.update({
             "spec steps": [st.get("spec_steps", 0),
                            exact(st.get("spec_steps", 0) > 0),
@@ -2514,10 +2636,11 @@ def spec_leg(cfg, params, cfg32, params32, draft_layers=None,
             "rewind": [surplus, exact(surplus == 0),
                        "pages past pages_for(pos) a live slot maps after "
                        "a speculative step"],
-            "draft prefill": [k1, exact(k1 == draft["draft_prefills"]
-                                        * draft_layers and k1 > 0),
-                              f"flash_fwd launches, {draft_layers} per "
-                              f"draft prefill ({draft['draft_prefills']})"]})
+            "draft prefill": [k1_draft, exact(
+                k1_draft == draft["draft_prefills"] * draft_layers
+                and k1_draft > 0), f"flash_fwd launches of the draft's "
+                f"prefills, {draft_layers} per draft prefill "
+                f"({draft['draft_prefills']})"]})
         st["draft"] = dict(draft)
         acc = st.get("spec_accepted", 0) / max(1, st.get("spec_proposed", 0))
         st["acceptance"] = acc
@@ -2529,7 +2652,7 @@ def spec_leg(cfg, params, cfg32, params32, draft_layers=None,
     del engine
     torch.cuda.empty_cache()
     cases["tokens"] = tokens_case(cfg, params, cfg32, params32, reqs,
-                                  results, kv_dtype, device)
+                                  results, kv_dtype, device, kv_layout)
     n_tok = sum(len(r.out) for r in results if r is not None)
     return cases, {"tokens": n_tok, "seconds": seconds,
                    "tokens_per_s": n_tok / seconds, "stats": st,
@@ -2537,16 +2660,19 @@ def spec_leg(cfg, params, cfg32, params32, draft_layers=None,
 
 
 def fault_legs(cfg, params32, device="cuda"):
-    """The phase-9 runs ``tools/serve_fault_check.py`` holds each planted
-    fault to, all in f32 (where a token is held to 1e-3 of its best
-    logit): the prefix traffic with the index, the speculative traffic
-    with the self-draft and with the SHALLOW_DRAFT-layer draft. Returns
+    """The runs ``tools/serve_fault_check.py`` holds each planted fault
+    to, all in f32 (where a token is held to 1e-3 of its best logit):
+    phase 9's prefix traffic with the index, its speculative traffic with
+    the self-draft and with the SHALLOW_DRAFT-layer draft (ragged layout),
+    and phase 11's run of phase 4's traffic on the gather layout. Returns
     {group: cases}."""
     import dataclasses
     import torch
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     out = {"prefix f32": prefix_leg(cfg32, params32, cfg32, params32,
-                                    device=device)[0]}
+                                    device=device)[0],
+           "paged f32": paged_leg(cfg32, params32, cfg32, params32,
+                                  device=device)[0]}
     for name, n in (("self-draft", cfg.num_hidden_layers),
                     (f"{SHALLOW_DRAFT}-layer draft", SHALLOW_DRAFT)):
         out[f"spec f32 {name}"] = spec_leg(cfg32, params32, cfg32, params32,
@@ -3156,6 +3282,214 @@ def moe_phase(device="cuda"):
     return launches, numbers
 
 
+# -------------------------------------------------------------- phase 11
+PAGED_F32_REQUESTS = 4      # the f32 engines serve phase 4's first four
+PREFIX_COUNTERS = ("prefix_hits", "prefix_tokens_shared",
+                   "prefix_pages_shared", "prefix_resumes",
+                   "prefix_marginal_pages", "cow_copies")
+# weight-only int8 bytes over bf16's: int8 payloads, one scale per output
+# channel and the few norm vectors
+WEIGHT_RATIO = (0.45, 0.55)
+
+
+def paged_leg(cfg, params, cfg32, params32, kv_layout="paged", kv_dtype=None,
+              pool_hbm_bytes=None, precision=None, n_requests=8,
+              device="cuda"):
+    """One serve of phase 4's traffic (its first ``n_requests``) on
+    ``kv_layout``, with ``kv_dtype`` pages or the weight-only ``precision``,
+    the cache NaN-poisoned first, and its checks: ``engine_cases`` (every
+    request complete; K1 once per layer per prefill and K3/K4 never on the
+    gather and dense layouts, phase 4's K3/K4 counts and no K1 on the
+    ragged one; the pool drained); with more requests than slots, at
+    least 2 admissions while another request decoded; every token within
+    its bound (``tokens_case``; a weight-only int8 engine is held to the
+    forward of its own dequantized weights, ``params32`` unused). Returns
+    (cases, numbers, each request's tokens)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatcher
+    from paddle_tpu_torch.quantization import (tree_nbytes,
+                                               weight_only_dequantize)
+    engine = ContinuousBatcher(cfg, params, kv_layout=kv_layout,
+                               kv_dtype=kv_dtype,
+                               pool_hbm_bytes=pool_hbm_bytes,
+                               precision=precision, device=device,
+                               **SERVE_GEOMETRY)
+    poison_pool(engine)
+    reqs, results, seconds, steps, k1 = drive(
+        engine, [serve_requests(cfg)[:n_requests]])
+    st = dict(engine.stats)
+    cases = engine_cases(engine, reqs, results, steps)
+    if n_requests > SERVE_GEOMETRY["max_batch"]:
+        mid = sum(s["midflight"] for s in steps)
+        cases["mid-flight admissions"] = [
+            mid, exact(mid >= 2), "steps that admitted a request while "
+            "another decoded, at least 2"]
+    decode = [s["peak_bytes"] for s in steps
+              if not s["prefill"] and not s["spec"]]
+    nums = {"tokens": sum(len(r.out) for r in results if r is not None),
+            "seconds": seconds, "stats": st,
+            "page_buckets_used": st["page_buckets_used"],
+            "usable_pages": (engine._alloc.usable
+                             if kv_layout != "dense" else None),
+            "weight_bytes": tree_nbytes(engine._params),
+            "peak_step_bytes": max(s["peak_bytes"] for s in steps),
+            "peak_decode_step_bytes": max(decode, default=0),
+            "launches": launch_totals(steps, k1)}
+    nums["tokens_per_s"] = nums["tokens"] / seconds
+    ref, ref32 = params, params32
+    if precision is not None:
+        ref = weight_only_dequantize(engine._params)
+        ref32 = {k: v.float() for k, v in ref.items()}
+    del engine
+    torch.cuda.empty_cache()
+    cases["tokens"] = tokens_case(cfg, ref, cfg32, ref32, reqs, results,
+                                  kv_dtype, device, kv_layout)
+    return cases, nums, [r and r.out for r in results]
+
+
+def paged_runs(cfg, params, cfg32, params32, budget, device="cuda"):
+    """Phase 11's runs in order, as (group, (cases, numbers, tokens)):
+    phase 4's traffic on ``"paged"`` over bf16, int8 and fp8 pages (the
+    quantized pools in the bf16 pool's ``budget`` bytes); the f32 engines
+    on ``"paged"``, ``"dense"`` and ``"ragged"``; ``"dense"`` in bf16;
+    phase 9's prefix traffic on ``"paged"``; its speculative traffic on
+    ``"paged"`` with the f32 self-draft; then, this generator having let go
+    of ``params32``, weight-only int8 on ``"paged"`` and ``"ragged"``."""
+    yield "paged bf16", paged_leg(cfg, params, cfg32, params32,
+                                  device=device)
+    for kv in ("int8", "fp8"):
+        yield f"paged {kv}", paged_leg(cfg, params, cfg32, params32,
+                                       kv_dtype=kv, pool_hbm_bytes=budget,
+                                       device=device)
+    for layout in ("paged", "dense", "ragged"):
+        yield f"{layout} f32", paged_leg(cfg32, params32, cfg32, params32,
+                                         kv_layout=layout,
+                                         n_requests=PAGED_F32_REQUESTS,
+                                         device=device)
+    yield "dense bf16", paged_leg(cfg, params, cfg32, params32,
+                                  kv_layout="dense", device=device)
+    yield "prefix paged bf16", prefix_leg(cfg, params, cfg32, params32,
+                                          kv_layout="paged",
+                                          device=device) + (None,)
+    yield "spec paged f32 self-draft", spec_leg(
+        cfg32, params32, cfg32, params32, cfg.num_hidden_layers,
+        kv_layout="paged", device=device) + (None,)
+    del params32
+    for layout in ("paged", "ragged"):
+        yield f"precision int8 {layout}", paged_leg(
+            cfg, params, cfg32, None, kv_layout=layout, precision="int8",
+            device=device)
+
+
+def flash_prefill_slot_time():
+    """K1 at the gather and dense prefill's shape (B=1, L=S=512, H=32,
+    D=128, causal, bf16), held to its plain version row by row, timed as
+    phase 6 times it beside its bound, the plain version and
+    scaled_dot_product_attention (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, L, H, D = 1, SERVE_GEOMETRY["prompt_buckets"][-1], 32, 128
+    rng = np.random.default_rng(SEED + 11)
+    q, k, v, _ = flash_inputs(rng, B, L, L, H, D, torch.bfloat16)
+    scale = fa._scale(D, None)
+    out, _ = fa._flash_fwd(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    ref, _ = fa.flash_attention_reference(q, k, v, True)
+    err, share = flash_err("prefill slot bf16 causal", out, ref,
+                           torch.bfloat16)
+    ms = time_ms(lambda: fa._flash_fwd(q, k, v, True, scale))
+    plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, True))
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True))
+    flops = 4 * D * B * H * L * (L + 1) // 2
+    nbytes = 2 * 4 * B * L * H * D + 4 * B * H * L   # q, k, v, out; lse
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": lib_ms, "max_abs_err": err, "share_of_bound": share,
+           "shape": f"B={B} L=S={L} H={H} D={D} bf16 causal",
+           "flops": flops, "bytes": nbytes}
+    print(f"[paged] K1 at the prefill slot's shape ({rec['shape']}): kernel "
+          f"{ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+          f"operations {t_ops:.4f}, bytes {t_bytes:.4f}), plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, max |kernel − plain| "
+          f"{err:.3e} ({share:.3f} of its bound)", flush=True)
+    return rec
+
+
+def paged_phase(cfg, prefix_stats):
+    """Phase 11: the gather-paged and dense layouts and the serving
+    precisions at Llama-2-7B's full width and depth (random weights, seed
+    0): ``paged_runs``, each run's checks required; the prefix counters
+    of the paged run equal to phase 9's ragged run's (``prefix_stats``);
+    the weight-only int8 weights at WEIGHT_RATIO of bf16's bytes; one
+    gather decode burst profiled; K1 timed at the prefill's shape.
+    Returns ({kernel: launches over the phase's serves}, numbers, K1's
+    record at the prefill's shape)."""
+    import collections
+    import torch
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.models.llama_paged import page_bytes
+    from paddle_tpu_torch.quantization import tree_nbytes
+    params = init_params(cfg, seed=SEED, device="cuda")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = {k: v.float() for k, v in params.items()}
+    budget = (SERVE_GEOMETRY["max_batch"]
+              * -(-SERVE_GEOMETRY["max_len"] // SERVE_GEOMETRY["page_size"])
+              + 1) * page_bytes(cfg, SERVE_GEOMETRY["page_size"])
+    runs = paged_runs(cfg, params, cfg32, params32, budget)
+    del params32
+    launches, numbers, outs = collections.Counter(), {}, {}
+    for group, (cases, nums, toks) in runs:
+        require(group, cases)
+        launches.update(nums.pop("launches"))
+        numbers[group], outs[group] = nums, toks
+        print(f"[paged] {group}: {nums['tokens']} tokens in "
+              f"{nums['seconds']:.3f} s = {nums['tokens_per_s']:.2f} "
+              f"tokens/s; page buckets {nums['stats']['page_buckets_used']};"
+              f" peak step {nums.get('peak_step_bytes', 0) / 2**20:.1f} MiB"
+              f" over the step's start; stats {nums['stats']}", flush=True)
+        torch.cuda.empty_cache()
+    same = {layout: sum(a == b for a, b in zip(outs[f"{layout} f32"],
+                                                outs["ragged f32"]))
+            for layout in ("paged", "dense")}
+    print(f"[paged] f32 requests token-identical to the ragged engine's: "
+          f"{same} of {PAGED_F32_REQUESTS}", flush=True)
+    got = numbers["prefix paged bf16"]["stats"]
+    diff = {k: (got.get(k, 0), prefix_stats.get(k, 0))
+            for k in PREFIX_COUNTERS
+            if got.get(k, 0) != prefix_stats.get(k, 0)}
+    require("prefix paged bf16 against phase 9", {"counters": [
+        len(diff), exact(not diff), f"prefix counters equal to phase 9's "
+        f"ragged run's; differing (paged, ragged): {diff}"]})
+    int8 = numbers["precision int8 paged"]
+    ratio = int8["weight_bytes"] / tree_nbytes(params)
+    mib = {g: numbers[g]["peak_decode_step_bytes"] / 2**20
+           for g in ("precision int8 paged", "paged bf16")}
+    print(f"[paged] weight bytes: int8 {int8['weight_bytes']}, bf16 "
+          f"{tree_nbytes(params)}: {ratio:.4f} (expected in {WEIGHT_RATIO}); "
+          f"peak of one decode step over its start: int8 "
+          f"{mib['precision int8 paged']:.1f} MiB, bf16 "
+          f"{mib['paged bf16']:.1f} MiB", flush=True)
+    check(WEIGHT_RATIO[0] <= ratio <= WEIGHT_RATIO[1],
+          f"weight-only int8 holds {ratio:.4f} of bf16's weight bytes")
+    profile_decode_burst(cfg, params, kv_layout="paged")
+    del params
+    torch.cuda.empty_cache()
+    rec = flash_prefill_slot_time()
+    for kernel in ("flash_fwd", "ragged_paged_attention",
+                   "ragged_paged_attention_tile"):
+        check(launches[kernel] > 0, f"phase 11 never launched {kernel}")
+    print(f"[paged] launches over the phase's serves: {dict(launches)}",
+          flush=True)
+    numbers["identical_to_ragged_f32"] = same
+    numbers["weight_ratio"] = ratio
+    return launches, numbers, rec
+
+
 FLASH_REPLACES = {
     "flash_fwd": "paddle_tpu/ops/flash_attention.py:316",
     # one kernel for both of K2's (dq_kernel :201, dkv_kernel :243)
@@ -3256,7 +3590,7 @@ def main() -> int:
     phase("sparse", t0)
     # 9. prefix sharing and speculative decoding on the serving engine
     t0 = time.perf_counter()
-    p9, _ = prefix_spec_phase(cfg)
+    p9, p9_numbers = prefix_spec_phase(cfg)
     for rec in records:
         rec["launches_prefix_spec"] = p9[rec["name"]]
     phase("prefix and speculative serving", t0)
@@ -3266,6 +3600,14 @@ def main() -> int:
     for rec in records:
         rec["launches_moe"] = p10[rec["name"]]
     phase("moe", t0)
+    # 11. the gather-paged and dense layouts and the serving precisions
+    t0 = time.perf_counter()
+    p11, _, k1_slot = paged_phase(cfg, p9_numbers["prefix bf16"]["stats"])
+    for rec in records:
+        rec["launches_paged"] = p11[rec["name"]]
+        if rec["name"] == "flash_fwd":
+            rec["prefill_slot"] = k1_slot
+    phase("paged", t0)
     phase("total", t_all)
     print(json.dumps({"kernels": records}))
     print(card)

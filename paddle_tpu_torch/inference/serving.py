@@ -1,61 +1,82 @@
-"""Continuous-batching LLM serving — the port of the ragged path of
+"""Continuous-batching LLM serving — the port of
 ``paddle_tpu/inference/serving.py``.
 
-ONE burst function whose batch dimension is a pool of slots with
-independent positions, so requests of different prompt lengths and
-generation budgets share every decode step (iteration-level scheduling):
+ONE engine whose batch dimension is a pool of slots with independent
+positions, so requests of different prompt lengths and generation budgets
+share every decode step (iteration-level scheduling): a queued request
+takes a free slot, prefills, and joins the next burst of ``burst``
+single-token steps over all active slots; a slot retires on EOS or its
+length budget and emits padding until the host swaps a new request in
+between bursts. Three KV layouts share that scheduler, as in the JAX
+package:
 
-  * admit — a queued request takes a free slot and pages for its actual
-    prompt length; its prompt rides into the next burst as a (token row,
-    length) pair and prefills inside the burst (``llama_ragged_burst``),
-    so its first token lands that same burst;
-  * decode — the burst runs ``burst`` single-token steps over all active
-    slots; a slot retires on EOS or its length budget and emits padding
-    until the host swaps a new request in between bursts.
+  * ``kv_layout="paged"`` (the default) — a shared ``[num_pages,
+    page_size, KV, hd]`` pool per layer with per-slot block tables
+    (``models/llama_paged.py``). Pages are allocated on admit and per
+    burst, freed on retire; when the pool runs dry mid-flight the
+    youngest slot is preempted back to the queue front (at temperature 0
+    its tokens regenerate exactly). A prompt is padded to its bucket and
+    prefilled alone (``llama_paged_prefill_slot``: kernel K1 in every
+    layer); decode gathers each slot's pages through the block table,
+    ``page_bucket × page_size`` rows (``llama_paged_decode_burst``). The
+    step is OVERLAPPED as in JAX: dispatch the burst, then do the host
+    work (admissions, their prefills, page allocation and frees) while
+    the device runs, then block once on one readback of the burst and
+    the prefills' first tokens. Every pool write goes on the pool's
+    stream, so pages freed right after a prefill's dispatch are rewritten
+    by a later owner only behind it.
+  * ``kv_layout="ragged"`` — the same pool read through the ragged kernel
+    (kernels K3/K4): admissions prefill inside the burst as (token row,
+    length) pairs (``llama_ragged_burst``), the block table rides full
+    width, and there is neither a page bucket nor a per-prompt prefill.
+    Unlike the JAX engine it never falls back to the gather path.
+  * ``kv_layout="dense"`` — per-slot ``[max_batch, max_len]`` rows
+    (``llama_decode``'s slot primitives), the equivalence baseline: no
+    pages, no quantized pages, no prefix sharing, no speculation.
 
-The KV cache is the paged pool of ``models/llama_paged.py``, read through
-the ragged kernel: the block table rides full width (the kernel reads only
-live pages), so there is neither a page bucket nor a prompt bucket. Pages
-are allocated on admit and per burst, freed on retire; when the pool runs
-dry mid-flight the youngest slot is preempted back to the queue front (at
-temperature 0 its tokens regenerate exactly).
+Quantized pages (paged pools): ``kv_dtype="int8"`` or ``"fp8"`` stores the
+pool through the port's block codecs (``quant/codec.py``: payload plus one
+f32 scale per (row, kv head)); the ragged path dequantizes in kernel K4,
+the gather path right after its gather. ``pool_hbm_bytes`` sizes the pool
+by a byte budget instead of a page count: the same budget buys ~1.94× the
+pages in int8 or fp8 at head_dim 128, scales included.
 
-The host scheduler is plain Python between device calls and keeps slot
-state in numpy. Each step uploads the slot state, launches the burst and
-blocks exactly once, on one device-to-host readback of the merged result.
+Serving precision: ``precision="int8"`` (or ``"weight_only_int8"``)
+quantizes the weights once here (``quantization.weight_only_quantize``)
+and every step dequantizes one layer's weights at a time just before use
+(``dequant=``); ``"bfloat16"`` casts the weights and serves a bf16 config.
+``"float16"`` raises: kernels K1 and K3 take f32 and bf16 only.
 
-Quantized pages: ``kv_dtype="int8"`` or ``"fp8"`` stores the pool through
-the port's block codecs (``quant/codec.py``: payload plus one f32 scale per
-(row, kv head)) and every attention read dequantizes through kernel K4.
-``pool_hbm_bytes`` sizes the pool by a byte budget instead of a page
-count: the same budget buys ~1.94× the pages in int8 or fp8 at head_dim
-128, scales included.
-
-Prefix sharing (``prefix_cache_pages=N``): a page-granular prefix index
-(``prefix_cache.py``) over this pool. An admission whose prompt shares
-full pages with an earlier one maps them copy-on-write and its row carries
-only the unshared suffix (``prefill_start`` = the matched tokens); a
-full-prefix hit runs no prefill at all and resumes decode at the last
-prompt token. A prompt's pages enter the index only once its prefill has
-been read back. Before every launch the growth sweep copies any shared
-page in a slot's write window into a private one (``_cow_for_burst``);
-idle indexed pages are reclaimed before anyone is preempted.
+Prefix sharing (``prefix_cache_pages=N``, paged pools): a page-granular
+prefix index (``prefix_cache.py``) over the pool. An admission whose
+prompt shares full pages with an earlier one maps them copy-on-write and
+prefills only the unshared suffix (the ragged row's ``prefill_start``, or
+``llama_paged_prefill_suffix``); a full-prefix hit runs no prefill and
+resumes decode at the last prompt token. A prompt's pages enter the index
+only once its prefill has been read back. Before every launch the growth
+sweep copies any shared page in a slot's write window into a private one
+(``_cow_for_burst``); idle indexed pages are reclaimed before anyone is
+preempted.
 
 Speculative decoding (``spec_decode=True, spec_k=k,
-spec_draft_layers=n``): when no admission could run instead, a step lets
-the draft (``speculative.py``) propose up to k tokens per slot and ONE
-target launch per layer verifies every slot's segment
-(``llama_paged_verify``); the accept-prefix walk emits 1..k+1 tokens per
-slot, token-identical to plain greedy decode, and the rejected tail's
-pages are freed.
+spec_draft_layers=n``, paged pools): when no admission could run instead,
+a step lets the draft (``speculative.py``) propose up to k tokens per slot
+and ONE target launch per layer verifies every slot's segment
+(``llama_paged_verify`` on the engine's read path); the accept-prefix walk
+emits 1..k+1 tokens per slot, token-identical to plain greedy decode, and
+the rejected tail's pages are freed.
 
-Only ``kv_layout="ragged"`` is ported. The other layouts, serving
-precisions and admission policies raise; the environment knobs
-(``PADDLE_SERVE_KV_DTYPE``, ``PADDLE_PREFIX_CACHE_PAGES``,
-``PADDLE_SPEC_*``, which the JAX engine reads when the argument is None)
-wait for the port of ``utils/env_flags.py``, so here None means off (pages
-in the model dtype, no prefix index, no speculation); metrics, chaos, SLO
-and admin hooks wait for later slices.
+The host scheduler is plain Python between device calls and keeps slot
+state in numpy; each step blocks on one device-to-host readback of its
+results (the dense layout: one for its admissions' first tokens, one for
+the burst, as in JAX).
+
+Not ported yet: admission policies (``admission=`` raises), the
+environment knobs (``PADDLE_SERVE_KV_DTYPE``, ``PADDLE_PREFIX_CACHE_PAGES``,
+``PADDLE_SPEC_*``, which the JAX engine reads when the argument is None;
+here None means off until ``utils/env_flags.py`` is ported), page
+export/import for disaggregated serving, and the metrics, chaos, SLO and
+admin hooks (ROADMAP Queue 1 items 5 and 7).
 """
 from __future__ import annotations
 
@@ -68,11 +89,25 @@ import torch
 
 from .._device import resolve_device
 from ..quant.codec import normalize_kv_dtype
-from .paging import PageAllocator, SCRATCH_PAGE, pages_for, pages_for_budget
+from ..quantization import weight_only_dequantize, weight_only_quantize
+from .paging import (PageAllocator, SCRATCH_PAGE, default_page_buckets,
+                     pages_for, pages_for_budget)
 from .prefix_cache import PrefixCache
 from .speculative import accept_prefix, spec_from_env
 
 __all__ = ["ContinuousBatcher", "ServedRequest"]
+
+
+def _read_back(*tensors) -> list:
+    """ONE device-to-host copy of int or bool device tensors, each widened
+    to int32: numpy arrays of their shapes, in order."""
+    flat = torch.cat([t.to(torch.int32).reshape(-1)
+                      for t in tensors]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].reshape(tuple(t.shape)))
+        off += t.numel()
+    return out
 
 
 @dataclasses.dataclass
@@ -86,7 +121,8 @@ class ServedRequest:
 
 
 class ContinuousBatcher:
-    """Slot-pool serving engine over the ragged paged burst.
+    """Slot-pool serving engine over a paged (gather or ragged read) or
+    dense KV cache.
 
     engine = ContinuousBatcher(cfg, params, max_batch=8, max_len=1024)
     rid = engine.add_request([1, 2, 3], max_new_tokens=64)
@@ -98,35 +134,72 @@ class ContinuousBatcher:
                  prompt_buckets: Sequence[int] = (32, 64, 128, 256),
                  burst: int = 8, eos_id: int | None = None, pad_id: int = 0,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
-                 precision: str | None = None, kv_layout: str = "ragged",
+                 precision: str | None = None, kv_layout: str = "paged",
                  page_size: int = 16, num_pages: int | None = None,
+                 page_buckets: Sequence[int] | None = None,
                  kv_dtype: str | None = None,
                  pool_hbm_bytes: int | None = None,
                  prefix_cache_pages: int | None = None,
                  spec_decode: bool | None = None, spec_k: int | None = None,
                  spec_draft_layers: int | None = None, admission=None,
                  device="cuda"):
-        if kv_layout in ("paged", "dense"):
-            raise NotImplementedError(
-                f"kv_layout={kv_layout!r} is not ported yet; the port "
-                "serves kv_layout='ragged'")
-        if kv_layout != "ragged":
+        if kv_layout not in ("paged", "dense", "ragged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        for name, val in (("precision", precision),
-                          ("admission", admission)):
-            if val:
-                raise NotImplementedError(
-                    f"{name}={val!r} is not ported yet")
+        if admission:
+            raise NotImplementedError(
+                f"admission={admission!r} is not ported yet (ROADMAP Queue "
+                "1 item 5)")
         self._dev = resolve_device(device)
         if params["embed_tokens"].device != self._dev:
             raise ValueError(f"params live on "
                              f"{params['embed_tokens'].device}, the engine "
                              f"was asked to run on {self._dev}")
+        # the draft builds from the view BEFORE the serving precision, as
+        # in the JAX engine
+        spec_src = (model_config, params)
+        self._dequant = None
+        if precision in ("int8", "weight_only_int8"):
+            # weights live quantized on the device; every step dequantizes
+            # one layer's weights at a time just before use
+            params = weight_only_quantize(params)
+            self._dequant = weight_only_dequantize
+        elif precision == "bfloat16":
+            params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+            # the config drives activation and KV dtype: bf16 weights
+            # under an f32 config would promote every product to f32
+            model_config = dataclasses.replace(model_config,
+                                               dtype=torch.bfloat16)
+        elif precision == "float16":
+            raise NotImplementedError(
+                "precision='float16' is not served by the port: kernels K1 "
+                "and K3 take f32 and bf16 only (ROADMAP Queue 2, "
+                "configurations the port does not yet run: fp16)")
+        elif precision is not None:
+            raise ValueError(f"unknown serving precision {precision!r}")
         self._cfg = model_config
         self._params = params
         # "int8" | "fp8" | None; every unquantized spelling is None, a
         # typo raises
         self._kv_dtype = normalize_kv_dtype(kv_dtype)
+        if kv_layout == "dense":
+            if self._kv_dtype is not None:
+                raise ValueError("kv_dtype quantization needs the paged "
+                                 "pool (kv_layout='paged' or 'ragged'); "
+                                 "the dense slot cache is the "
+                                 "full-precision baseline")
+            if pool_hbm_bytes is not None:
+                raise ValueError("pool_hbm_bytes sizes the paged page "
+                                 "pool; the dense slot cache is sized by "
+                                 "max_batch × max_len — a silently ignored "
+                                 "budget would hide a misconfiguration")
+            if prefix_cache_pages:
+                raise ValueError("prefix sharing needs the paged pool "
+                                 "(kv_layout='paged' or 'ragged') — the "
+                                 "dense slot cache has no shareable page "
+                                 "unit")
+        # "ragged" is the paged pool read through the ragged kernel
+        self._ragged = kv_layout == "ragged"
+        self._layout = "dense" if kv_layout == "dense" else "paged"
         self.B, self.S = int(max_batch), int(max_len)
         self._buckets = tuple(sorted(b for b in prompt_buckets
                                      if b <= max_len))
@@ -146,6 +219,36 @@ class ContinuousBatcher:
         self._limit = np.zeros(self.B, np.int32)
         self._slot_req: list[ServedRequest | None] = [None] * self.B
 
+        self._queue: deque[ServedRequest] = deque()
+        self._finished: dict[int, ServedRequest] = {}
+        self._next_rid = 0
+        self.stats = {"bursts": 0, "decode_steps": 0, "prefills": 0,
+                      "prefill_bursts": 0, "admission_stalls": 0,
+                      "preemptions": 0, "max_concurrent": 0,
+                      "page_buckets_used": []}
+        # the prefix_* / cow_copies / spec_* counters appear on first use,
+        # as in the JAX engine
+        self._prefix = None
+        if self._layout == "paged":
+            self._init_pool(page_size, num_pages, page_buckets,
+                            pool_hbm_bytes, prefix_cache_pages)
+        else:
+            from ..models.llama_decode import init_kv_cache
+            self._cache = init_kv_cache(self._cfg, self.B, self.S,
+                                        device=self._dev)
+        # the draft half of speculative decoding; None when off or gated
+        self._spec, why = spec_from_env(
+            spec_src[0], spec_src[1], max_batch=self.B, max_len=self.S,
+            prompt_buckets=self._buckets, temperature=self._temp,
+            paged=self._layout == "paged", spec_decode=spec_decode,
+            k=spec_k, draft_layers=spec_draft_layers, device=self._dev)
+        if why:
+            self.stats["spec_disabled"] = why
+
+    def _init_pool(self, page_size, num_pages, page_buckets, pool_hbm_bytes,
+                   prefix_cache_pages):
+        """The paged layouts' pool, allocator, page buckets, block tables
+        and prefix index."""
         from ..models.llama_paged import init_paged_kv_cache, page_bytes
         self._ps = int(page_size)
         if self._ps < 1:
@@ -158,12 +261,20 @@ class ContinuousBatcher:
                 raise ValueError("pass num_pages or pool_hbm_bytes, not both")
             num_pages = pages_for_budget(
                 pool_hbm_bytes,
-                page_bytes(model_config, self._ps, self._kv_dtype))
+                page_bytes(self._cfg, self._ps, self._kv_dtype))
         elif num_pages is None:
             # capacity for every slot at max_len, plus the scratch page
             num_pages = self.B * slot_max_pages + 1
         self._alloc = PageAllocator(num_pages)
-        self._cache = init_paged_kv_cache(model_config, num_pages, self._ps,
+        # the gather path's block-table widths: a burst reads the bucket of
+        # its widest live slot (the ragged path reads full width)
+        pb = (default_page_buckets(slot_max_pages) if page_buckets is None
+              else tuple(sorted({min(int(p), slot_max_pages)
+                                 for p in page_buckets if int(p) >= 1})))
+        if not pb or pb[-1] < slot_max_pages:
+            pb = tuple(sorted(set(pb) | {slot_max_pages}))
+        self._page_buckets = pb
+        self._cache = init_paged_kv_cache(self._cfg, num_pages, self._ps,
                                           kv_dtype=self._kv_dtype,
                                           device=self._dev)
         # per-slot block tables (host truth); _admit_seq orders slots by
@@ -171,31 +282,25 @@ class ContinuousBatcher:
         self._page_tbl: list[list[int]] = [[] for _ in range(self.B)]
         self._admit_seq = [0] * self.B
         self._seq = 0
-
-        self._queue: deque[ServedRequest] = deque()
-        self._finished: dict[int, ServedRequest] = {}
-        self._next_rid = 0
-        self.stats = {"bursts": 0, "decode_steps": 0, "prefills": 0,
-                      "prefill_bursts": 0, "admission_stalls": 0,
-                      "preemptions": 0, "max_concurrent": 0}
-        # the prefix_* / cow_copies / spec_* counters appear on first use,
-        # as in the JAX engine
-
         # prefix index over THIS pool; None (or 0) keeps the engine
         # without one
-        self._prefix = None
         if prefix_cache_pages and int(prefix_cache_pages) > 0:
             self._prefix = PrefixCache(
                 self._alloc, self._ps,
                 min(int(prefix_cache_pages), self._alloc.usable))
-        # the draft half of speculative decoding; None when off or gated
-        self._spec, why = spec_from_env(
-            model_config, params, max_batch=self.B, max_len=self.S,
-            prompt_buckets=self._buckets, temperature=self._temp,
-            paged=True, spec_decode=spec_decode, k=spec_k,
-            draft_layers=spec_draft_layers, device=self._dev)
-        if why:
-            self.stats["spec_disabled"] = why
+
+    def _dev_of(self, a):
+        """A host array as a tensor on the engine's device."""
+        return torch.from_numpy(a).to(self._dev)
+
+    def _table(self, active, P: int):
+        """The [B, P] block table on the device: each active slot's pages,
+        scratch everywhere else."""
+        bt = np.full((self.B, P), SCRATCH_PAGE, np.int32)
+        for b in active:
+            ids = self._page_tbl[b]
+            bt[b, :len(ids)] = ids
+        return self._dev_of(bt)
 
     # ------------------------------------------------------------- intake
     def add_request(self, prompt_ids, max_new_tokens: int = 32) -> int:
@@ -228,12 +333,21 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_len {self.S}")
-        worst = pages_for(len(prompt) + max_new_tokens, self._ps)
-        if worst > self._alloc.usable:
-            raise ValueError(
-                f"request needs {worst} pages but the pool only has "
-                f"{self._alloc.usable} usable — it could never be admitted")
+        if self._layout == "paged":
+            worst = pages_for(len(prompt) + max_new_tokens, self._ps)
+            if not self._ragged:
+                # the gather path's prefill writes the whole bucket
+                worst = max(worst, pages_for(self._bucket_len(len(prompt)),
+                                             self._ps))
+            if worst > self._alloc.usable:
+                raise ValueError(
+                    f"request needs {worst} pages but the pool only has "
+                    f"{self._alloc.usable} usable — it could never be "
+                    "admitted")
         return prompt, max_new_tokens
+
+    def _bucket_len(self, n: int) -> int:
+        return next(b for b in self._buckets if b >= n)
 
     # ----------------------------------------------------------- retire
     def _finish(self, req: ServedRequest) -> None:
@@ -241,15 +355,16 @@ class ContinuousBatcher:
         self._finished[req.rid] = req
 
     def _retire_slot(self, slot: int) -> None:
-        """Free a slot and its pages. Zeroing its host state points its
-        frozen writes at row 0 of the scratch page."""
+        """Free a slot and (paged) its pages. Zeroing its host state points
+        its frozen writes at row 0 (of the scratch page, paged)."""
         self._slot_req[slot] = None
         self._pos[slot] = 0
         self._tok[slot] = self.pad_id
         self._done[slot] = True
         self._limit[slot] = 0
-        self._alloc.free(self._page_tbl[slot])
-        self._page_tbl[slot] = []
+        if self._layout == "paged":
+            self._alloc.free(self._page_tbl[slot])
+            self._page_tbl[slot] = []
         if self._spec is not None:
             # every path that vacates a slot lands here, so the next
             # occupant re-prefills the draft from ITS sequence
@@ -312,22 +427,26 @@ class ContinuousBatcher:
             self._prefix.insert(req.prompt, self._page_tbl[slot])
 
     def _admit_resume(self, req: ServedRequest, slot: int,
-                      shared: list) -> None:
+                      shared: list) -> tuple:
         """Full-prefix hit (every prompt position's K/V already cached):
         no prefill at all; decode resumes at the LAST prompt token. The
         next launch's first step recomputes position tlen-1's K/V (a
         write the growth sweep first copies into a private tail page,
         since that page is shared) and samples the first generated token,
-        the arithmetic a prefill's sampling runs."""
+        the arithmetic a prefill's sampling runs. Returns the slot state
+        (req, slot, pos, tok, limit) the gather path re-applies after its
+        readback, which is stale for this slot."""
         tlen = len(req.prompt)
+        limit = min(tlen + req.max_new_tokens - 1, self.S - 1)
         self._page_tbl[slot] = shared
         self._slot_req[slot] = req
         self._admit_seq[slot] = self._seq = self._seq + 1
         self._pos[slot] = tlen - 1
         self._tok[slot] = int(req.prompt[-1])
         self._done[slot] = False
-        self._limit[slot] = min(tlen + req.max_new_tokens - 1, self.S - 1)
+        self._limit[slot] = limit
         self._count("prefix_resumes")
+        return req, slot, tlen - 1, int(req.prompt[-1]), limit
 
     def _cow_for_burst(self, b: int, last_pos: int) -> bool:
         """Copy-on-write sweep over slot ``b``'s write window [pos,
@@ -446,7 +565,216 @@ class ContinuousBatcher:
             if grown or not active:
                 return active
 
-    # ------------------------------------------------------------ burst
+    # ---------------------------------------------------- gather ("paged")
+    def _dispatch_burst_paged(self):
+        """Grow block tables to cover this burst's writes, then dispatch the
+        gather burst over the page bucket of the widest live slot. Returns
+        (old_pos, device results) or None when nothing is active; no host
+        sync here."""
+        from ..models.llama_paged import llama_paged_decode_burst
+        active = [b for b, r in enumerate(self._slot_req) if r is not None]
+        if not active:
+            return None
+        active = self._grow_for_burst(active)
+        if not active:
+            return None
+        width = max(len(self._page_tbl[b]) for b in active)
+        P = next(p for p in self._page_buckets if p >= width)
+        if P not in self.stats["page_buckets_used"]:
+            self.stats["page_buckets_used"] = sorted(
+                self.stats["page_buckets_used"] + [P])
+        old_pos = self._pos.copy()
+        (self._cache, pos_d, tok_d, done_d, emitted_d) = \
+            llama_paged_decode_burst(
+                self._params, self._cache, self._table(active, P),
+                self._dev_of(self._pos), self._dev_of(self._tok),
+                self._dev_of(self._done), self._dev_of(self._limit),
+                self.eos_id, self._gen, config=self._cfg, n=self.burst,
+                temperature=self._temp, top_k=self._top_k,
+                pad_id=self.pad_id, dequant=self._dequant,
+                kv_dtype=self._kv_dtype)
+        self.stats["bursts"] += 1
+        self.stats["decode_steps"] += self.burst
+        return old_pos, pos_d, tok_d, done_d, emitted_d
+
+    def _admit_paged(self):
+        """Pop + bucket + allocate + dispatch prefills: host work that
+        overlaps the burst in flight. Admission is gated by free pages and
+        a free slot. A prefix-index hit maps the shared pages and prefills
+        only the suffix (``llama_paged_prefill_suffix``, its prefix table
+        padded to a page bucket); a full-prefix hit dispatches nothing and
+        resumes decode at the last prompt token. Returns (staged: [(req,
+        slot, tlen, first token on the device)], installed: the resumes'
+        slot state)."""
+        from ..models.llama_paged import (llama_paged_prefill_slot,
+                                          llama_paged_prefill_suffix)
+        staged, installed = [], []
+        stalled = False
+        while self._queue and None in self._slot_req:
+            req = self._queue[0]
+            tlen = len(req.prompt)
+            shared, matched = self._prefix_match(req)
+            resume = bool(shared) and matched >= tlen
+            tb = 0 if resume else self._bucket_len(tlen - matched)
+            need = pages_for(tb, self._ps)
+            if not self._reclaim_to(need):
+                if shared:
+                    self._alloc.free(shared)
+                stalled = True   # stays queued; pages free as slots retire
+                break
+            self._queue.popleft()
+            if shared:
+                self._prefix_hit_account(shared, matched)
+            slot = self._slot_req.index(None)
+            if resume:
+                installed.append(self._admit_resume(req, slot, shared))
+                continue
+            pages = self._alloc.alloc(need)
+            suffix = tlen - matched
+            toks = np.full(tb, self.pad_id, np.int32)
+            toks[:suffix] = req.prompt[matched:]
+            kw = dict(config=self._cfg, temperature=self._temp,
+                      top_k=self._top_k, generator=self._gen,
+                      dequant=self._dequant, kv_dtype=self._kv_dtype)
+            if shared:
+                pp = matched // self._ps
+                ptbl = np.full(next(p for p in self._page_buckets if p >= pp),
+                               SCRATCH_PAGE, np.int32)
+                ptbl[:pp] = shared
+                first, self._cache = llama_paged_prefill_suffix(
+                    self._params, self._cache, self._dev_of(toks),
+                    self._dev_of(np.asarray(pages, np.int32)),
+                    self._dev_of(ptbl), matched, suffix, **kw)
+                self._count("prefix_marginal_pages",
+                            pages_for(suffix, self._ps))
+            else:
+                first, self._cache = llama_paged_prefill_slot(
+                    self._params, self._cache, self._dev_of(toks),
+                    self._dev_of(np.asarray(pages, np.int32)), tlen, **kw)
+            # pages past the real prompt hold only bucket-pad rows the
+            # mask never exposes: free them now (a later owner's writes
+            # queue behind this prefill on the pool's stream); growth
+            # allocates the decode page when it is needed
+            keep = pages_for(suffix, self._ps)
+            self._alloc.free(pages[keep:])
+            self._page_tbl[slot] = shared + pages[:keep]
+            self._slot_req[slot] = req   # reserved; state lands at the sync
+            self._admit_seq[slot] = self._seq = self._seq + 1
+            self.stats["prefills"] += 1
+            staged.append((req, slot, tlen, first))
+        if stalled:
+            self.stats["admission_stalls"] += 1
+        self.stats["prefill_bursts"] += bool(staged)
+        return staged, installed
+
+    def _sync_merge_paged(self, inflight, staged, installed) -> int:
+        """The one blocking point of a gather step: ONE readback of the
+        burst (slot state, emissions) and every staged first token, then
+        host bookkeeping. Slots admitted this step sat free during the
+        burst, so its readback is stale for them: the drain skips them,
+        the resumes' admitted state is re-applied and the prefilled slots
+        start decoding from their first token."""
+        if inflight is None and not staged and not installed:
+            return 0
+        firsts = [f for *_, f in staged]
+        vals = _read_back(*(inflight[1:] if inflight else ()),
+                          *([torch.stack(firsts)] if firsts else ()))
+        emitted_total = 0
+        if inflight:
+            pos, tok, done, emitted = vals[:4]
+            self._pos, self._tok, self._done = pos, tok, done.astype(bool)
+            emitted_total += self._drain_burst(
+                inflight[0], self._done, emitted,
+                skip={s for _, s, *_ in staged + installed})
+        for req, slot, pos0, tok0, limit0 in installed:
+            # a resume emits its first token in the next burst
+            self._pos[slot] = pos0
+            self._tok[slot] = tok0
+            self._done[slot] = False
+            self._limit[slot] = limit0
+        for (req, slot, tlen, _), first in zip(staged, vals[-1] if firsts
+                                               else ()):
+            first = int(first)
+            req.out.append(first)
+            emitted_total += 1
+            # the first token is back, so the prompt pages' content
+            # landed: index them (before any retire)
+            self._prefix_insert(req, slot)
+            if req.max_new_tokens <= 1 or first == self.eos_id:
+                self._finish(req)
+                self._retire_slot(slot)
+                continue
+            self._pos[slot] = tlen
+            self._tok[slot] = first
+            self._done[slot] = False
+            self._limit[slot] = min(tlen + req.max_new_tokens - 1,
+                                    self.S - 1)
+        self.stats["max_concurrent"] = max(self.stats["max_concurrent"],
+                                           self.active)
+        return emitted_total
+
+    # ---------------------------------------------------------- "dense"
+    def _admit_dense(self) -> int:
+        """Prefill every admissible request into a free slot
+        (``llama_prefill_slot``: kernel K1 in every layer), then ONE
+        readback of their first tokens. Returns the tokens emitted."""
+        from ..models.llama_decode import llama_prefill_slot
+        staged = []
+        while self._queue and None in self._slot_req:
+            req = self._queue.popleft()
+            slot = self._slot_req.index(None)
+            tlen = len(req.prompt)
+            toks = np.full(self._bucket_len(tlen), self.pad_id, np.int32)
+            toks[:tlen] = req.prompt
+            first, self._cache = llama_prefill_slot(
+                self._params, self._cache, self._dev_of(toks), slot, tlen,
+                config=self._cfg, temperature=self._temp, top_k=self._top_k,
+                generator=self._gen, dequant=self._dequant)
+            self.stats["prefills"] += 1
+            self._slot_req[slot] = req
+            staged.append((req, slot, tlen, first))
+        if not staged:
+            return 0
+        self.stats["prefill_bursts"] += 1
+        firsts, = _read_back(torch.stack([f for *_, f in staged]))
+        for (req, slot, tlen, _), first in zip(staged, firsts):
+            first = int(first)
+            req.out.append(first)
+            if req.max_new_tokens <= 1 or first == self.eos_id:
+                self._finish(req)
+                self._slot_req[slot] = None
+                continue
+            self._pos[slot] = tlen
+            self._tok[slot] = first
+            self._done[slot] = False
+            self._limit[slot] = min(tlen + req.max_new_tokens - 1,
+                                    self.S - 1)
+        return len(staged)
+
+    def _step_dense(self) -> int:
+        """Admit synchronously, then one burst over the dense slot cache
+        and its one readback (the JAX engine's order for this layout)."""
+        from ..models.llama_decode import llama_decode_burst
+        emitted_total = self._admit_dense()
+        if self.active == 0:
+            return emitted_total
+        self.stats["max_concurrent"] = max(self.stats["max_concurrent"],
+                                           self.active)
+        old_pos = self._pos.copy()
+        (self._cache, pos_d, tok_d, done_d, emitted_d) = llama_decode_burst(
+            self._params, self._cache, self._dev_of(self._pos),
+            self._dev_of(self._tok), self._dev_of(self._done),
+            self._dev_of(self._limit), self.eos_id, config=self._cfg,
+            n=self.burst, temperature=self._temp, top_k=self._top_k,
+            pad_id=self.pad_id, generator=self._gen, dequant=self._dequant)
+        self.stats["bursts"] += 1
+        self.stats["decode_steps"] += self.burst
+        pos, tok, done, emitted = _read_back(pos_d, tok_d, done_d, emitted_d)
+        self._pos, self._tok, self._done = pos, tok, done.astype(bool)
+        return emitted_total + self._drain_burst(old_pos, self._done,
+                                                 emitted)
+
+    # ----------------------------------------------------------- ragged
     def _dispatch_ragged(self, staged):
         """ONE launch covering this burst's admissions (ragged prefill) and
         every decoding slot. Returns (old_pos, device results) or None
@@ -460,11 +788,6 @@ class ContinuousBatcher:
         staged[:] = [s for s in staged if self._slot_req[s[1]] is s[0]]
         if not active:
             return None
-        P = pages_for(self.S, self._ps)          # full width, always
-        bt = np.full((self.B, P), SCRATCH_PAGE, np.int32)
-        for b in active:
-            ids = self._page_tbl[b]
-            bt[b, :len(ids)] = ids
         t_max = self._buckets[-1]                # the ONE static width
         new_tokens = np.full((self.B, t_max), self.pad_id, np.int32)
         new_lens = np.zeros(self.B, np.int32)
@@ -474,31 +797,32 @@ class ContinuousBatcher:
             new_lens[slot] = sl
             starts[slot] = start
 
-        def dev(a):
-            return torch.from_numpy(a).to(self._dev)
-
+        dev = self._dev_of
         old_pos = self._pos.copy()
         (self._cache, pos_d, tok_d, done_d, emitted_d, firsts_d) = \
             llama_ragged_burst(
-                self._params, self._cache, dev(bt), dev(self._pos),
-                dev(self._tok), dev(self._done), dev(self._limit),
-                dev(new_tokens), dev(new_lens), dev(starts), self.eos_id,
-                self._gen, config=self._cfg, n=self.burst,
-                has_prefill=bool(staged), temperature=self._temp,
-                top_k=self._top_k, pad_id=self.pad_id,
-                kv_dtype=self._kv_dtype)
+                self._params, self._cache,
+                self._table(active, pages_for(self.S, self._ps)),
+                dev(self._pos), dev(self._tok), dev(self._done),
+                dev(self._limit), dev(new_tokens), dev(new_lens),
+                dev(starts), self.eos_id, self._gen, config=self._cfg,
+                n=self.burst, has_prefill=bool(staged),
+                temperature=self._temp, top_k=self._top_k,
+                pad_id=self.pad_id, kv_dtype=self._kv_dtype,
+                dequant=self._dequant)
         self.stats["bursts"] += 1
         self.stats["decode_steps"] += self.burst
         self.stats["prefill_bursts"] += bool(staged)
         return old_pos, pos_d, tok_d, done_d, emitted_d, firsts_d
 
-    def _drain_burst(self, old_pos, done, emitted) -> int:
+    def _drain_burst(self, old_pos, done, emitted, skip=frozenset()) -> int:
         """Extend each live slot's output by its ``pos - old_pos`` burst
         emissions and finish+retire the slots the device marked done.
-        Returns the token count drained."""
+        ``skip`` holds slots whose readback is stale (admitted while the
+        gather burst was in flight). Returns the token count drained."""
         total = 0
         for slot, req in enumerate(self._slot_req):
-            if req is None:
+            if req is None or slot in skip:
                 continue
             n_new = int(self._pos[slot] - old_pos[slot])
             req.out.extend(int(t) for t in emitted[:n_new, slot])
@@ -515,17 +839,10 @@ class ContinuousBatcher:
         if inflight is None:
             return 0
         old_pos = inflight[0]
-        pos, tok, done, emitted, firsts = inflight[1:]
-        B = self.B
-        flat = torch.cat([pos.to(torch.int32), tok.to(torch.int32),
-                          done.to(torch.int32), firsts.to(torch.int32),
-                          emitted.to(torch.int32).reshape(-1)]).cpu().numpy()
-        self._pos = flat[:B].copy()
-        self._tok = flat[B:2 * B].copy()
-        done = flat[2 * B:3 * B].astype(bool)
+        pos, tok, done, emitted, firsts = _read_back(*inflight[1:])
+        self._pos, self._tok = pos, tok
+        done = done.astype(bool)
         self._done = done.copy()
-        firsts = flat[3 * B:4 * B]
-        emitted = flat[4 * B:].reshape(-1, B)
         emitted_total = 0
         for req, slot, *_ in staged:
             # the prefill token, sampled inside the same burst; the drain
@@ -583,19 +900,17 @@ class ContinuousBatcher:
             tokens[b, :len(row)] = row
             n_tok[b] = len(row)
             start[b] = self._pos[b]
-        P = pages_for(self.S, self._ps)          # full width, always
-        bt = np.full((self.B, P), SCRATCH_PAGE, np.int32)
-        for b in active:
-            ids = self._page_tbl[b]
-            bt[b, :len(ids)] = ids
-
-        def dev(a):
-            return torch.from_numpy(a).to(self._dev)
-
+        if self._ragged:
+            P = pages_for(self.S, self._ps)      # full width, always
+        else:
+            P = next(p for p in self._page_buckets
+                     if p >= max(len(self._page_tbl[b]) for b in active))
+        dev = self._dev_of
         targets_d, self._cache = llama_paged_verify(
-            self._params, self._cache, dev(bt), dev(start), dev(tokens),
-            dev(n_tok), config=self._cfg, kv_dtype=self._kv_dtype)
-        targets = targets_d.cpu().numpy()
+            self._params, self._cache, self._table(active, P), dev(start),
+            dev(tokens), dev(n_tok), config=self._cfg, ragged=self._ragged,
+            kv_dtype=self._kv_dtype, dequant=self._dequant)
+        targets, = _read_back(targets_d)
         self.stats["bursts"] += 1
         self._count("spec_steps")
         self._count("spec_slot_launches", len(active))
@@ -636,14 +951,23 @@ class ContinuousBatcher:
         return emitted_total
 
     def step(self) -> int:
-        """One scheduling iteration: a speculative step when
-        ``_spec_applicable``, else admit, launch one mixed burst and block
-        once on its readback. Returns the tokens it emitted."""
+        """One scheduling iteration; returns the tokens it emitted. A
+        speculative step when ``_spec_applicable``; otherwise, ragged:
+        admit, launch one mixed burst, block once on its readback; paged
+        (overlapped): dispatch the burst, admit and dispatch prefills while
+        it runs, block once on the combined readback; dense: admit, then
+        burst."""
         if self._spec_applicable():
             return self._step_spec()
-        staged = self._admit_ragged()
-        inflight = self._dispatch_ragged(staged)
-        return self._sync_merge_ragged(inflight, staged)
+        if self._ragged:
+            staged = self._admit_ragged()
+            inflight = self._dispatch_ragged(staged)
+            return self._sync_merge_ragged(inflight, staged)
+        if self._layout == "paged":
+            inflight = self._dispatch_burst_paged()
+            staged, installed = self._admit_paged()
+            return self._sync_merge_paged(inflight, staged, installed)
+        return self._step_dense()
 
     # ------------------------------------------------------------ status
     def take_finished(self) -> dict[int, ServedRequest]:
@@ -662,7 +986,13 @@ class ContinuousBatcher:
 
     @property
     def pages_in_use(self) -> int:
-        return self._alloc.pages_in_use
+        return self._alloc.pages_in_use if self._layout == "paged" else 0
+
+    @property
+    def page_size(self) -> int:
+        if self._layout != "paged":
+            raise ValueError("dense layout has no pages")
+        return self._ps
 
     def run(self) -> dict:
         """Drain the queue; returns {rid: [generated token ids]}."""

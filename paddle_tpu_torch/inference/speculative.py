@@ -1,4 +1,4 @@
-"""Speculative decoding on the ragged serving engine — the port of
+"""Speculative decoding on the paged serving engine — the port of
 ``paddle_tpu/inference/speculative.py``.
 
 A DRAFT model proposes up to ``k`` greedy tokens per live slot, then the
@@ -40,8 +40,10 @@ Differences from the JAX module:
 * A draft that fails to build RAISES. The JAX engine catches every
   exception there and serves without a draft; on the port that would
   hide a device or kernel fault.
-* The int8 weight-only draft (``precision``) raises NotImplementedError:
-  it needs ``quantization/`` (ROADMAP Queue 1 item 9).
+* ``precision="int8"`` (the weight-only int8 draft,
+  ``quantization.weight_only_quantize`` of the truncated draft) is an
+  argument of ``SpeculativeDecoder`` and ``spec_from_env`` only: the
+  engine reads no ``PADDLE_SPEC_DRAFT_PRECISION``.
 * No spans or metrics (item 5); ``stats["draft_s"]`` keeps the host
   seconds of the propose calls, which end in a readback.
 """
@@ -123,7 +125,8 @@ def draft_from_target(params, config, n_layers: int):
     return draft, dcfg
 
 
-def draft_spec_burst(params, cache, pos, inputs, n_forced, config, n: int):
+def draft_spec_burst(params, cache, pos, inputs, n_forced, config, n: int,
+                     dequant=None):
     """n greedy draft steps over all slots (one propose call).
 
     pos [B]: the draft-cache row step 0 writes at (the slot's valid
@@ -133,9 +136,9 @@ def draft_spec_burst(params, cache, pos, inputs, n_forced, config, n: int):
     ``llama_decode_step_slots`` on the dense draft cache; write rows clamp
     to the cache's last row (the overflow scratch row: a slot at its
     budget keeps proposing junk the host caps away without clobbering a
-    valid row). Returns (cache, samples [n, B]): samples[j] is the greedy
-    token after step j, so a slot with n_forced = f proposes
-    samples[f-1 : n-1]."""
+    valid row). ``dequant``: a weight-only int8 draft's dequantizer.
+    Returns (cache, samples [n, B]): samples[j] is the greedy token after
+    step j, so a slot with n_forced = f proposes samples[f-1 : n-1]."""
     from ..models.llama_decode import llama_decode_step_slots
 
     last = cache["k"][0].shape[1] - 1
@@ -148,7 +151,7 @@ def draft_spec_burst(params, cache, pos, inputs, n_forced, config, n: int):
                               cur)
             wpos = torch.clamp(pos32 + j, max=last)
             logits, cache = llama_decode_step_slots(params, cache, wpos, tok,
-                                                    config)
+                                                    config, dequant)
             cur = torch.argmax(logits, dim=-1).to(torch.int32)
             samples.append(cur)
     return cache, torch.stack(samples)
@@ -168,18 +171,22 @@ class SpeculativeDecoder:
         from .._device import resolve_device
         from ..models.llama_decode import init_kv_cache
 
-        if precision:
-            raise NotImplementedError(
-                f"draft precision={precision!r} is not ported yet: the "
-                "weight-only int8 draft needs quantization/ (ROADMAP Queue "
-                "1 item 9)")
         self.k = int(k)
         if self.k < 1:
             raise ValueError(f"spec k must be >= 1, got {self.k}")
         L = int(config.num_hidden_layers)
         n = int(draft_layers) if draft_layers else -(-L // 2)
-        self._params, self._cfg = draft_from_target(params, config, n)
+        dparams, self._cfg = draft_from_target(params, config, n)
         self.draft_layers = self._cfg.num_hidden_layers
+        self._dequant = None
+        if precision in ("int8", "weight_only_int8"):
+            from ..quantization import (weight_only_dequantize,
+                                        weight_only_quantize)
+            dparams = weight_only_quantize(dparams)
+            self._dequant = weight_only_dequantize
+        elif precision:
+            raise ValueError(f"unknown draft precision {precision!r}")
+        self._params = dparams
         self._dev = resolve_device(device)
         self.B, self.S = int(max_batch), int(max_len)
         # + 1 row: the overflow scratch row draft_spec_burst clamps
@@ -233,7 +240,8 @@ class SpeculativeDecoder:
                 toks[:n0] = _seq_slice(parts, 0, n0)
                 llama_prefill_slot(self._params, self._cache,
                                    torch.from_numpy(toks).to(self._dev),
-                                   slot, n0, config=self._cfg)
+                                   slot, n0, config=self._cfg,
+                                   dequant=self._dequant)
                 self._valid[slot] = n0
                 self.stats["draft_prefills"] += 1
 
@@ -256,7 +264,7 @@ class SpeculativeDecoder:
 
         self._cache, samples_d = draft_spec_burst(
             self._params, self._cache, dev(base), dev(inputs),
-            dev(n_forced), config=self._cfg, n=Td)
+            dev(n_forced), config=self._cfg, n=Td, dequant=self._dequant)
         samples = samples_d.cpu().numpy()                  # [Td, B]
         self.stats["draft_launches"] += 1
 

@@ -229,16 +229,23 @@ def _attention(q, k, v, config, use_flash=True, flash=flash_attention_raw):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def split_layer_params(params):
+def split_layer_params(params, dequant=None):
+    """(layer-stacked entries, the others). ``dequant`` (weight-only int8
+    serving: ``quantization.weight_only_dequantize``) turns the others —
+    embedding, final norm, head — into dense tensors here; the layers stay
+    quantized until ``layer_slice`` takes one."""
     layer = {k: v for k, v in params.items() if k in _LAYER_KEYS}
     other = {k: v for k, v in params.items() if k not in _LAYER_KEYS}
-    return layer, other
+    return layer, (other if dequant is None else dequant(other))
 
 
-def layer_slice(layer_p, l):
+def layer_slice(layer_p, l, dequant=None):
     """Layer ``l``'s parameters: views of stacked ``[L, ...]`` tensors, or
-    the ``l``-th entries of per-layer sequences."""
-    return {k: v[l] for k, v in layer_p.items()}
+    the ``l``-th entries of per-layer sequences; with ``dequant``, that
+    one layer's weights dequantized just before its use, so a quantized
+    model never holds more than one dense layer."""
+    lp = {k: v[l] for k, v in layer_p.items()}
+    return lp if dequant is None else dequant(lp)
 
 
 def resolve_head(other):
@@ -374,17 +381,18 @@ def _embed(other, tokens, config):
     return other["embed_tokens"][tokens.long()].to(config.dtype)
 
 
-def _trunk(params, tokens, config: LlamaConfig):
+def _trunk(params, tokens, config: LlamaConfig, dequant=None):
     """Embedding + every decoder layer over tokens [B, T]: (final hidden
-    [B, T, D], other params, per-layer K list, per-layer V list)."""
-    layer_p, other = split_layer_params(params)
+    [B, T, D], other params, per-layer K list, per-layer V list);
+    ``dequant`` as in ``split_layer_params``."""
+    layer_p, other = split_layer_params(params, dequant)
     B, T = tokens.shape
     x = _embed(other, tokens, config)
     positions = _positions(B, T, x.device)
     ks, vs = [], []
     for l in range(config.num_hidden_layers):
-        x, k, v, _ = _decoder_layer(x, layer_slice(layer_p, l), config,
-                                    positions)
+        x, k, v, _ = _decoder_layer(x, layer_slice(layer_p, l, dequant),
+                                    config, positions)
         ks.append(k)
         vs.append(v)
     return x, other, ks, vs

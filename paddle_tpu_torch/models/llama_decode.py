@@ -13,9 +13,13 @@ independent positions: ``llama_prefill_slot`` prefills one bucket-padded
 prompt into one slot (its attention through ``_attention``: kernel K1 on
 a CUDA tensor), ``llama_decode_step_slots`` advances every slot one token
 at its own position, and ``llama_decode_burst`` runs n such steps with
-the serving engine's stop rules. The speculative draft
-(``inference/speculative.py``) is their caller in the port; the slot
-attention is plain tensor arithmetic, as in the JAX package.
+the serving engine's stop rules (``burst_steps``, the scan every burst
+shares). The engine's ``kv_layout="dense"`` and the speculative draft
+(``inference/speculative.py``) are their callers; the slot attention is
+plain tensor arithmetic, as in the JAX package. ``dequant=`` (weight-only
+int8 serving) dequantizes one layer's weights at a time inside the layer
+loop, where the JAX package dequantizes the whole tree inside its jitted
+step: the same values, without a dense copy of the model.
 
 Sampling: greedy (``temperature <= 0``) is argmax and is held to the JAX
 package token for token. Temperature and top-k sampling draw from an
@@ -32,7 +36,7 @@ from .llama import (LlamaConfig, _mlp, _qkv, _rmsnorm, _rope, _trunk,
 
 __all__ = ["init_kv_cache", "llama_prefill", "llama_decode_step",
            "llama_generate", "llama_decode_step_slots", "llama_prefill_slot",
-           "llama_decode_burst"]
+           "llama_decode_burst", "burst_steps"]
 
 
 def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
@@ -76,8 +80,12 @@ def llama_prefill(params, tokens, config: LlamaConfig, max_len: int):
 def _cached_attention_slots(q, kc, vc, pos, config):
     """Per-slot positions: q [B,1,H,hd]; kc/vc [B,S,KV,hd]; pos [B].
     Grouped einsum (no repeat of the cache to H heads), f32 logits, -1e30
-    mask over rows > pos, f32 softmax rounded to q.dtype. This is the
-    decode-row oracle of the ragged kernel."""
+    mask over rows > pos, f32 softmax rounded to q.dtype. The V rows the
+    mask hides are zeroed before the product: their probabilities are
+    exactly 0, and a NaN there (a row never written) must not reach the
+    output as 0·NaN; for finite rows nothing changes. This is the
+    decode-row oracle of the ragged kernel and the read of the dense and
+    gather layouts."""
     c = config
     H, KV = c.num_attention_heads, c.num_key_value_heads
     g = H // KV
@@ -90,6 +98,7 @@ def _cached_attention_slots(q, kc, vc, pos, config):
              <= pos.to(q.device)[:, None].long())
     logits = logits.masked_fill(~valid[:, None, None, None, :], -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    vc = torch.where(valid[:, :, None, None], vc, vc.new_zeros(()))
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, vc)
     return out.reshape(B, 1, H, hd)
 
@@ -128,22 +137,25 @@ def llama_decode_step(params, cache, pos: int, token, config: LlamaConfig):
                     "v": tuple(vs[l] for l in range(L))}
 
 
-def llama_decode_step_slots(params, cache, pos, token, config: LlamaConfig):
+def llama_decode_step_slots(params, cache, pos, token, config: LlamaConfig,
+                            dequant=None):
     """``llama_decode_step`` with a PER-SLOT position vector.
 
     token [B] int32, pos [B] int32: slot b writes its K/V at row pos[b]
     (in place) and attends rows <= pos[b]. Free or finished slots rewrite
     their frozen row with identical values: dead compute, not corruption.
-    Returns (next-token logits [B, V] f32, cache)."""
+    ``dequant``: weight-only int8 params, dequantized a layer at a time
+    (``llama.layer_slice``). Returns (next-token logits [B, V] f32,
+    cache)."""
     c = config
-    layer_p, other = split_layer_params(params)
+    layer_p, other = split_layer_params(params, dequant)
     B = token.shape[0]
     x = other["embed_tokens"][token.long()[:, None]].to(c.dtype)
     positions = pos[:, None].to(torch.int32)
     rows = torch.arange(B, device=x.device)
     at = pos.long()
     for l in range(c.num_hidden_layers):
-        lp = layer_slice(layer_p, l)
+        lp = layer_slice(layer_p, l, dequant)
         h = _rmsnorm(x, lp["ln1"], c.rms_norm_eps)
         q, k, v = _qkv(h, lp, c)
         q, k = _rope(q, k, positions, c.rope_theta, c.head_dim)
@@ -158,21 +170,23 @@ def llama_decode_step_slots(params, cache, pos, token, config: LlamaConfig):
 
 def llama_prefill_slot(params, cache, tokens, slot: int, tlen: int,
                        config: LlamaConfig, temperature: float = 0.0,
-                       top_k: int = 0, generator=None):
+                       top_k: int = 0, generator=None, dequant=None):
     """Prefill ONE request into cache slot ``slot``.
 
     tokens [Tb] int32, the prompt padded to a bucket length; ``tlen`` the
     real prompt length. Writes rows [0, Tb) of the slot in place (pad rows
     hold K/V that decode overwrites before its mask ever reaches them),
     samples the first generated token from the logits at tlen - 1, and
-    returns (first token as a 0-d int32 tensor, cache)."""
+    returns (first token as a 0-d int32 tensor, cache). The attention is
+    ``llama._attention``'s flash path: kernel K1 on a CUDA tensor.
+    ``dequant`` as in ``llama_decode_step_slots``."""
     Tb = tokens.shape[0]
     S = cache["k"][0].shape[1]
     if not 1 <= int(tlen) <= Tb <= S:
         raise ValueError(f"prompt length {tlen}, bucket {Tb}, cache rows "
                          f"{S}: want 1 <= tlen <= bucket <= rows")
     with torch.no_grad():
-        x, other, ks, vs = _trunk(params, tokens[None, :], config)
+        x, other, ks, vs = _trunk(params, tokens[None, :], config, dequant)
         for l in range(config.num_hidden_layers):
             cache["k"][l][int(slot), :Tb] = ks[l][0]
             cache["v"][l][int(slot), :Tb] = vs[l][0]
@@ -183,19 +197,38 @@ def llama_prefill_slot(params, cache, tokens, slot: int, tlen: int,
 
 def llama_decode_burst(params, cache, pos, tok, done, limit, eos_id: int,
                        config: LlamaConfig, n: int, temperature: float = 0.0,
-                       top_k: int = 0, pad_id: int = 0, generator=None):
+                       top_k: int = 0, pad_id: int = 0, generator=None,
+                       dequant=None):
     """n slot-decode steps, the dense serving hot loop.
 
     pos/tok/done/limit [B]; ``eos_id`` -1 for none. A slot stops advancing
     when it emits eos_id or its position reaches ``limit`` (= prompt_len +
     max_new - 1, capped at S - 1); finished slots emit ``pad_id`` and
-    freeze. Returns (cache, pos, tok, done, emitted [n, B])."""
+    freeze. ``dequant`` as in ``llama_decode_step_slots``. Returns
+    (cache, pos, tok, done, emitted [n, B])."""
+    def logits_of(pos, tok):
+        return llama_decode_step_slots(params, cache, pos, tok, config,
+                                       dequant)[0]
+
+    pos, tok, done, emitted = burst_steps(
+        logits_of, pos, tok, done, limit, eos_id, n, temperature, top_k,
+        pad_id, generator)
+    return cache, pos, tok, done, emitted
+
+
+def burst_steps(logits_of, pos, tok, done, limit, eos_id: int, n: int,
+                temperature: float = 0.0, top_k: int = 0, pad_id: int = 0,
+                generator=None):
+    """The serving bursts' scan: n steps of ``logits_of(pos, tok)`` (one
+    decode step over every slot, writing the cache in place) with their
+    stop rules — a slot stops on ``eos_id`` or when its position reaches
+    ``limit``; finished slots emit ``pad_id`` and freeze. Returns (pos,
+    tok, done, emitted [n, B])."""
     emitted = []
     with torch.no_grad():
         for _ in range(n):
-            logits, cache = llama_decode_step_slots(params, cache, pos, tok,
-                                                    config)
-            nxt = _sample(logits, temperature, top_k, generator)
+            nxt = _sample(logits_of(pos, tok), temperature, top_k,
+                          generator)
             emitted.append(torch.where(done, torch.full_like(nxt, pad_id),
                                        nxt))
             new_pos = torch.where(done, pos, pos + 1)
@@ -205,7 +238,7 @@ def llama_decode_burst(params, cache, pos, tok, done, limit, eos_id: int,
     emitted = torch.stack(emitted) if emitted \
         else torch.empty((0, tok.shape[0]), dtype=tok.dtype,
                          device=tok.device)
-    return cache, pos, tok, done, emitted
+    return pos, tok, done, emitted
 
 
 def _sample(logits, temperature, top_k, generator=None):

@@ -255,7 +255,7 @@ def test_serve_faults_plant_on_the_current_modules(tools, serve_tool):
     module it names and names the runs and checks it must fail."""
     _, fc = tools
     faults = serve_tool.FAULTS
-    assert faults["none"] is None and len(faults) == 5
+    assert faults["none"] is None and len(faults) == 7
     for name, fault in faults.items():
         if fault is None:
             continue
@@ -266,13 +266,15 @@ def test_serve_faults_plant_on_the_current_modules(tools, serve_tool):
 
 
 @pytest.mark.parametrize("fault", ["none", "verify_kv_len", "cow_skipped",
-                                   "rewind_kept", "insert_at_admit"])
+                                   "rewind_kept", "insert_at_admit",
+                                   "decode_wrong_row", "page_freed_early"])
 def test_serve_faults_caught_by_phase9_checks_on_cpu(serve_tool, fault,
                                                      tmp_path):
-    """Phase 9's fault runs (``chip_smoke.fault_legs``) at a tiny size on
-    the CPU, in a planted copy as the tool makes it: the unmodified engine
-    passes every check but the launch counts, and each planted fault fails
-    a check it names by at least CATCH_FACTOR."""
+    """The fault runs (``chip_smoke.fault_legs``: phase 9's, and phase
+    11's gather run) at a tiny size on the CPU, in a planted copy as the
+    tool makes it: the unmodified engine passes every check but the launch
+    counts, and each planted fault fails a check it names by at least
+    CATCH_FACTOR (the gather faults in the gather run's tokens)."""
     import json
     import subprocess
     copy = serve_tool.planted_copy(str(TOOLS.parent),

@@ -391,7 +391,8 @@ def _engines(models, **kw):
     jcfg, jparams, tcfg, tparams = models
     geo = {**GEOMETRY, **kw}
     return (JaxBatcher(jcfg, jparams, kv_layout="ragged", **geo),
-            ContinuousBatcher(tcfg, tparams, device="cpu", **geo))
+            ContinuousBatcher(tcfg, tparams, kv_layout="ragged", device="cpu",
+                              **geo))
 
 
 # staggered waves: later admissions prefill beside decoding slots, whose

@@ -8,6 +8,11 @@ The JAX side runs compiled (``jax.jit``), as the JAX serving burst runs
 it: XLA turns the division by the constant ``qmax`` into a multiply by
 its reciprocal, which the port follows (eager JAX divides; the two differ
 by one f32 ulp in many scales, also pinned here). No tolerance anywhere.
+
+Weight-only int8 (``paddle_tpu_torch/quantization``): the JAX engine runs
+``weight_only_quantize`` eagerly in its constructor, so here the JAX side
+runs eagerly too; int8 values, scales and dequantized weights are held
+bit for bit in f32 and bf16.
 """
 import jax
 import jax.numpy as jnp
@@ -23,6 +28,7 @@ from paddle_tpu_torch.inference.paging import pages_for_budget
 from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.models import llama_paged as tp
 from paddle_tpu_torch.quant import codec as tc
+from paddle_tpu_torch import quantization as tq
 
 MODES = ("int8", "fp8")
 
@@ -215,3 +221,72 @@ def test_init_paged_kv_cache_layout(kv_dtype):
     else:
         assert got["k"][0].dtype == tc.wire_dtype(kv_dtype)
         assert got["k_scale"][0].dtype == torch.float32
+
+
+def _weights(seed, dtype):
+    """A params dict as the quantizer sees one: a layer-stacked matrix
+    whose output channels span magnitudes 1e-3 to 10 (one all-zero
+    channel), a plain matrix, one too small to quantize, a vector and an
+    int matrix."""
+    rng = np.random.RandomState(seed)
+    w = (rng.standard_normal((3, 40, 64))
+         * rng.uniform(1e-3, 10.0, (1, 1, 64))).astype(np.float32)
+    w[:, :, 7] = 0.0
+    return {"stacked": w,
+            "matrix": rng.standard_normal((96, 48)).astype(np.float32),
+            "small": rng.standard_normal((16, 16)).astype(np.float32),
+            "vector": rng.standard_normal(4096).astype(np.float32),
+            "ints": rng.randint(-5, 5, (64, 64)).astype(np.int32)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weight_only_quantize_bit_for_bit(dtype):
+    """int8 values and scales (in the weight's dtype, reduced axes kept as
+    size-1 dims) and the dequantized weights equal the eager JAX
+    function's bit for bit; the leaves it must not touch pass through."""
+    from paddle_tpu import quantization as jq
+    raw = _weights(3, dtype)
+    jparams = {k: (jnp.asarray(v, getattr(jnp, dtype))
+                   if v.dtype == np.float32 else jnp.asarray(v))
+               for k, v in raw.items()}
+    tparams = {k: (torch.from_numpy(v).to(getattr(torch, dtype))
+                   if v.dtype == np.float32 else torch.from_numpy(v))
+               for k, v in raw.items()}
+    jout, tout = jq.weight_only_quantize(jparams), \
+        tq.weight_only_quantize(tparams)
+    for k in ("stacked", "matrix"):
+        t, j = tout[k], jout[k]
+        assert isinstance(t, tq.QuantizedWeight)
+        assert t.int8.dtype == torch.int8 and t.scale.dtype == t.orig_dtype
+        assert tuple(t.scale.shape) == tuple(j.scale.shape)
+        np.testing.assert_array_equal(t.int8.numpy(), np.asarray(j.int8))
+        np.testing.assert_array_equal(_bits(t.scale.view(torch.int16)
+                                            if dtype == "bfloat16"
+                                            else t.scale.numpy()),
+                                      _bits(j.scale))
+    for k in ("small", "vector", "ints"):
+        assert tout[k] is tparams[k]
+    jd = jq.weight_only_dequantize(jout)
+    td = tq.weight_only_dequantize(tout)
+    for k in ("stacked", "matrix"):
+        assert td[k].dtype == tparams[k].dtype
+        np.testing.assert_array_equal(
+            _bits(td[k].view(torch.int16) if dtype == "bfloat16"
+                  else td[k].numpy()), _bits(jd[k]))
+
+
+def test_quantized_weight_slices_like_its_tensor():
+    """``w[l]`` is layer l's int8 matrix beside the shared scale and
+    dequantizes to the dense weight's layer l; ``w[:n]`` keeps the first
+    n layers: what ``layer_slice`` and the draft's truncation take."""
+    raw = _weights(4, "float32")
+    w = torch.from_numpy(raw["stacked"])
+    q = tq.weight_only_quantize({"w": w})["w"]
+    full = q.dequantize()
+    assert torch.equal(q[1].dequantize(), full[1])
+    assert torch.equal(q[:2].dequantize(), full[:2])
+    assert q[1].int8.shape == w[1].shape
+    assert q.nbytes == w.numel() + 64 * 4
+    assert tq.tree_nbytes({"w": q, "b": w[0]}) == q.nbytes + w[0].nbytes
+    # int8 against f32: a quarter of the bytes, plus the scales
+    assert q.nbytes / w.nbytes == pytest.approx(0.25, abs=0.01)

@@ -85,7 +85,8 @@ def test_staggered_tokens_identical_to_jax(models):
     jcfg, jparams, tcfg, tparams = models
     ref = _serve(JaxBatcher(jcfg, jparams, kv_layout="ragged", **GEOMETRY),
                  WAVES)
-    eng = ContinuousBatcher(tcfg, tparams, device="cpu", **GEOMETRY)
+    eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                            device="cpu", **GEOMETRY)
     out = _serve(eng, WAVES)
     assert out == ref
     assert eng.pages_in_use == 0
@@ -106,7 +107,8 @@ def test_preemption_tokens_identical_to_jax(models):
     jeng = JaxBatcher(jcfg, jparams, kv_layout="ragged", num_pages=9,
                       **GEOMETRY)
     ref = _serve(jeng, waves)
-    eng = ContinuousBatcher(tcfg, tparams, num_pages=9, device="cpu",
+    eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                            num_pages=9, device="cpu",
                             **GEOMETRY)
     out = _serve(eng, waves)
     assert eng.stats["preemptions"] > 0
@@ -121,7 +123,8 @@ def test_eos_retires_slot_early(models):
     full = llama_generate(tparams, torch.tensor([prompt]), tcfg, 12,
                           device="cpu")[0].tolist()
     eos = full[3]
-    eng = ContinuousBatcher(tcfg, tparams, eos_id=eos, device="cpu",
+    eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                            eos_id=eos, device="cpu",
                             **GEOMETRY)
     rid = eng.add_request(prompt, 12)
     out = eng.run()[rid]
@@ -135,7 +138,8 @@ def test_sampling_engine_is_seeded(models):
     _, _, tcfg, tparams = models
 
     def serve(seed):
-        eng = ContinuousBatcher(tcfg, tparams, temperature=0.8, top_k=8,
+        eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                                temperature=0.8, top_k=8,
                                 seed=seed, device="cpu", **GEOMETRY)
         return _serve(eng, WAVES[:1])
 
@@ -157,17 +161,34 @@ def test_page_accounting_matches_jax(models, live):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(kv_layout="paged"), NotImplementedError),
-    (dict(kv_layout="dense"), NotImplementedError),
     (dict(kv_layout="bogus"), ValueError),
-    (dict(precision="int8"), NotImplementedError),
-    (dict(precision="bfloat16"), NotImplementedError),
     (dict(admission=object()), NotImplementedError),
+    (dict(precision="float16"), NotImplementedError),
+    (dict(precision="int4"), ValueError),
 ])
 def test_unported_options_raise(models, kw, exc):
+    """An unknown layout or precision, an admission policy (not ported
+    yet), and fp16 serving (kernels K1 and K3 take f32 and bf16 only)."""
     _, _, tcfg, tparams = models
     with pytest.raises(exc):
-        ContinuousBatcher(tcfg, tparams, device="cpu", **{**GEOMETRY, **kw})
+        ContinuousBatcher(tcfg, tparams, device="cpu",
+                          **{**GEOMETRY, **kw})
+
+
+@pytest.mark.parametrize("kw", [dict(kv_layout="paged"),
+                                dict(kv_layout="dense"),
+                                dict(precision="int8"),
+                                dict(precision="bfloat16")])
+def test_layouts_and_precisions_serve(models, kw):
+    """Each other layout and serving precision serves the first wave to
+    completion and drains (``tests/test_torch_serving_paged.py`` holds
+    their tokens to the JAX engine's)."""
+    _, _, tcfg, tparams = models
+    eng = ContinuousBatcher(tcfg, tparams, device="cpu",
+                            **{**GEOMETRY, **kw})
+    out = _serve(eng, WAVES[:1])
+    assert [len(t) for t in out] == [m for _, m in WAVES[0]]
+    assert eng.pages_in_use == 0
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
@@ -178,7 +199,8 @@ def test_quantized_staggered_tokens_identical_to_jax(models, kv_dtype):
     jcfg, jparams, tcfg, tparams = models
     ref = _serve(JaxBatcher(jcfg, jparams, kv_layout="ragged",
                             kv_dtype=kv_dtype, **GEOMETRY), WAVES)
-    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype, device="cpu",
+    eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                            kv_dtype=kv_dtype, device="cpu",
                             **GEOMETRY)
     out = _serve(eng, WAVES)
     assert out == ref
@@ -198,7 +220,8 @@ def test_quantized_preemption_tokens_identical_to_jax(models, kv_dtype):
     jeng = JaxBatcher(jcfg, jparams, kv_layout="ragged", kv_dtype=kv_dtype,
                       num_pages=8, **geo)
     ref = _serve(jeng, waves)
-    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype, num_pages=8,
+    eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                            kv_dtype=kv_dtype, num_pages=8,
                             device="cpu", **geo)
     out = _serve(eng, waves)
     assert eng.stats["preemptions"] >= 1 and jeng.stats["preemptions"] >= 1
@@ -222,7 +245,8 @@ def test_quantized_bf16_tokens_identical_to_jax(kv_dtype):
                                  device="cpu")
     ref = _serve(JaxBatcher(jcfg, jparams, kv_layout="ragged",
                             kv_dtype=kv_dtype, **GEOMETRY), WAVES)
-    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype, device="cpu",
+    eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                            kv_dtype=kv_dtype, device="cpu",
                             **GEOMETRY)
     assert _serve(eng, WAVES) == ref
     assert eng._cache["k"][0].dtype != torch.bfloat16
@@ -231,7 +255,8 @@ def test_quantized_bf16_tokens_identical_to_jax(kv_dtype):
 @pytest.mark.parametrize("spelling", [None, "", "off", "bf16", "native"])
 def test_unquantized_spellings_have_no_scale_pools(models, spelling):
     _, _, tcfg, tparams = models
-    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=spelling, device="cpu",
+    eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                            kv_dtype=spelling, device="cpu",
                             **GEOMETRY)
     assert eng._kv_dtype is None
     assert set(eng._cache) == {"k", "v"}
@@ -241,7 +266,8 @@ def test_unquantized_spellings_have_no_scale_pools(models, spelling):
 def test_kv_dtype_typo_raises(models):
     _, _, tcfg, tparams = models
     with pytest.raises(ValueError, match="int9"):
-        ContinuousBatcher(tcfg, tparams, kv_dtype="int9", device="cpu",
+        ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                          kv_dtype="int9", device="cpu",
                           **GEOMETRY)
 
 
@@ -254,19 +280,21 @@ def test_pool_hbm_bytes_page_count_matches_jax(models, kv_dtype):
     budget = 37 * tp.page_bytes(tcfg, 8) + 5
     jeng = JaxBatcher(jcfg, jparams, kv_layout="ragged", kv_dtype=kv_dtype,
                       pool_hbm_bytes=budget, **GEOMETRY)
-    eng = ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype,
+    eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                            kv_dtype=kv_dtype,
                             pool_hbm_bytes=budget, device="cpu", **GEOMETRY)
     assert eng._alloc.num_pages == jeng._alloc.num_pages
     assert eng._cache["k"][0].shape[0] == eng._alloc.num_pages
     with pytest.raises(ValueError, match="not both"):
-        ContinuousBatcher(tcfg, tparams, kv_dtype=kv_dtype,
+        ContinuousBatcher(tcfg, tparams, kv_layout="ragged", kv_dtype=kv_dtype,
                           pool_hbm_bytes=budget, num_pages=8, device="cpu",
                           **GEOMETRY)
 
 
 def test_impossible_requests_rejected_at_enqueue(models):
     _, _, tcfg, tparams = models
-    eng = ContinuousBatcher(tcfg, tparams, device="cpu", **GEOMETRY)
+    eng = ContinuousBatcher(tcfg, tparams, kv_layout="ragged",
+                            device="cpu", **GEOMETRY)
     with pytest.raises(ValueError):
         eng.add_request([], 4)
     with pytest.raises(ValueError):
@@ -292,7 +320,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(models):
     with pytest.raises(RuntimeError, match="cuda"):
         llama_generate(tparams, toks, tcfg, 2)
     with pytest.raises(RuntimeError, match="cuda"):
-        ContinuousBatcher(tcfg, tparams, **GEOMETRY)
+        ContinuousBatcher(tcfg, tparams, kv_layout="ragged", **GEOMETRY)
     with pytest.raises(RuntimeError, match="cuda"):
         init_paged_kv_cache(tcfg, 4, 8)
 

@@ -14,8 +14,10 @@ weights, at the engine geometry of ``tests/test_speculative.py``.
   engine's.
 * Gates: temperature > 0 and k < 1 turn speculation off with the reason
   in ``stats["spec_disabled"]``; ``spec_decode=None`` means off (no
-  environment knob yet); a draft that fails to build raises, and a draft
-  precision is not ported.
+  environment knob yet); a draft that fails to build raises, and so does
+  an unknown draft precision.
+* The weight-only int8 draft (``precision="int8"``) proposes the JAX int8
+  draft's tokens.
 
 Tolerance: greedy tokens identical (temperature 0, f32 model).
 """
@@ -65,7 +67,8 @@ def _engines(models, **kw):
     jcfg, jparams, tcfg, tparams = models
     geo = {**GEOMETRY, **kw}
     return (JaxBatcher(jcfg, jparams, kv_layout="ragged", **geo),
-            ContinuousBatcher(tcfg, tparams, device="cpu", **geo))
+            ContinuousBatcher(tcfg, tparams, kv_layout="ragged", device="cpu",
+                              **geo))
 
 
 def _requests(seed, spec):
@@ -291,10 +294,38 @@ def test_draft_build_failure_raises(models, monkeypatch):
     monkeypatch.setattr(td, "init_kv_cache", broken)
     with pytest.raises(RuntimeError, match="draft cache"):
         _engines(models, spec_decode=True, spec_k=2)[1]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="draft precision"):
         ts.spec_from_env(models[2], models[3], max_batch=2, max_len=32,
                          prompt_buckets=(8,), temperature=0.0, paged=True,
-                         spec_decode=True, precision="int8", device="cpu")
+                         spec_decode=True, precision="int4", device="cpu")
+
+
+@pytest.mark.parametrize("draft_layers", [1, 2])
+def test_int8_draft_proposes_the_jax_drafts_tokens(models, draft_layers):
+    """``SpeculativeDecoder(precision="int8")``, the weight-only int8
+    draft: its layers are the quantized truncation (int8 tensors), and
+    over cold slots (a draft prefill, then forced catch-up) and warm ones
+    it proposes the JAX int8 draft's tokens."""
+    from paddle_tpu_torch.quantization import QuantizedWeight
+    jcfg, jparams, tcfg, tparams = models
+    geo = dict(max_batch=3, max_len=96, prompt_buckets=(8, 16, 32), k=3,
+               draft_layers=draft_layers, precision="int8")
+    jdec = js.SpeculativeDecoder(jcfg, jparams, **geo)
+    tdec = ts.SpeculativeDecoder(tcfg, tparams, device="cpu", **geo)
+    assert isinstance(tdec._params["wq"], QuantizedWeight)
+    assert tdec._params["wq"].int8.shape[0] == draft_layers
+    reqs = _requests(19, [(11, 20), (4, 20), (21, 20)])
+    seqs = [(p, []) for p, _ in reqs]
+    for _ in range(3):
+        jobs = [(b, len(p) + len(o) - 1, 90, (p, o))
+                for b, (p, o) in enumerate(seqs)]
+        got, want = tdec.propose(jobs), jdec.propose(jobs)
+        assert got == want
+        for b, (p, o) in enumerate(seqs):
+            # accept one proposal, then the correction token
+            o += got[b][:1] + [7]
+            for d in (tdec, jdec):
+                d.commit(b, min(1, len(got[b])))
 
 
 def test_chip_smoke_phase9_rehearses_on_cpu():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Planted-fault check of phase 9 of ``chip_smoke.py`` (prefix sharing
-and speculative decoding on the serving engine), on one GPU.
+"""Planted-fault check of phases 9 and 11 of ``chip_smoke.py`` (prefix
+sharing and speculative decoding on the serving engine, and its gather
+layout), on one GPU.
 
     python3 tools/serve_fault_check.py
 
@@ -13,9 +14,10 @@ checkout; then, for each fault, it copies the package, ``chip_smoke.py``,
 ``tools/`` and the built kernels into a temporary directory (never into
 the checkout), plants the fault in the copy's module, and runs the copy's
 script with ``--measure``: Llama-2-7B at full width and depth, f32,
-through ``chip_smoke.fault_legs`` — the prefix traffic with the index and
-the speculative traffic with the self-draft and with the 16-layer draft,
-each on a NaN-poisoned pool — printing one JSON line ``{run: {check:
+through ``chip_smoke.fault_legs`` — the prefix traffic with the index,
+the speculative traffic with the self-draft and with the 16-layer draft
+(ragged layout), and phase 4's traffic on the gather layout (phase 11's
+run), each on a NaN-poisoned pool — printing one JSON line ``{run: {check:
 [value, share of its bound, note]}}``. A check fails when its share
 exceeds 1 or is not finite; an exact check (a count, an invariant, a
 bitwise comparison) has share 0 when it holds and inf when it does not.
@@ -38,10 +40,21 @@ The copies:
 * ``insert_at_admit``  — a prompt's pages enter the index at admission,
   before its prefill ran: the duplicate admitted in the same pass resumes
   on them and copies its tail page unwritten (NaN); must fail the prefix
-  run's tokens.
+  run's tokens;
+* ``decode_wrong_row`` — the gather layout's decode step writes each
+  slot's K/V one row past its position (``_paged_decode_step_slots``),
+  so every read sees the previous token's K/V at the current row (or an
+  unwritten one); must fail the gather run's tokens;
+* ``page_freed_early`` — the gather layout's admission frees one page
+  too many after the prefill, the prompt's tail page, and drops it from
+  the block table: the growth sweep later maps another page there, whose
+  rows a later prefill or nothing wrote, while the prompt's rows in it
+  are still to be read; must fail the gather run's tokens.
 
 Exits 0 when the unmodified copy passes every check and each planted
 fault fails a check it names by at least ``fault_check.CATCH_FACTOR``.
+Fault names after the script's name run only those copies, e.g.
+``python3 tools/serve_fault_check.py none decode_wrong_row``.
 """
 from __future__ import annotations
 
@@ -65,6 +78,10 @@ REWIND = "            if len(tbl) > keep:"
 MERGE_INSERT = ("            self._prefix_insert(req, slot)\n"
                 "        emitted_total += self._drain_burst(")
 ADMIT = "            staged.append((req, slot, tlen - matched, matched))"
+DECODE_ROW = ("    page = bt.gather(1, (pos_l // ps).clamp(max=P - 1)"
+              "[:, None])[:, 0]\n    row = pos_l % ps")
+KEEP = ("            keep = pages_for(suffix, self._ps)\n"
+        "            self._alloc.free(pages[keep:])")
 # {name: None, or (module under the package, Fault)}
 FAULTS = {
     "none": None,
@@ -84,12 +101,21 @@ FAULTS = {
                (ADMIT, "            self._prefix_insert(req, slot)\n" + ADMIT,
                 0)),
         must_fail=("prefix f32",), cases=("tokens",))),
+    "decode_wrong_row": ("models/llama_paged.py", Fault(
+        sites=((DECODE_ROW, DECODE_ROW.replace("row = pos_l % ps",
+                                               "row = (pos_l + 1) % ps"),
+                0),),
+        must_fail=("paged f32",), cases=("tokens",))),
+    "page_freed_early": ("inference/serving.py", Fault(
+        sites=((KEEP, KEEP.replace("self._ps)\n", "self._ps) - 1\n"), 0),),
+        must_fail=("paged f32",), cases=("tokens",))),
 }
 
 
 def measure():
-    """Phase 9's fault runs on the package beside this script's parent
-    directory: {run: {check: [value, share, note]}}."""
+    """The fault runs (``chip_smoke.fault_legs``) on the package beside
+    this script's parent directory: {run: {check: [value, share,
+    note]}}."""
     import torch
     import chip_smoke as cs
     from paddle_tpu_torch.models.llama import LlamaConfig, init_params
@@ -152,11 +178,20 @@ def main():
         if fault is not None:
             with open(os.path.join(root, PACKAGE, fault[0])) as f:
                 fault_check.plant(f.read(), fault[1])
+    # fault names on the command line run those copies only ("none"
+    # among them to hold the unmodified engine)
+    chosen = [a for a in sys.argv[1:] if not a.startswith("-")]
+    unknown = set(chosen) - set(FAULTS)
+    if unknown:
+        print(f"serve_fault_check.py: unknown faults {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+    faults = {n: f for n, f in FAULTS.items() if not chosen or n in chosen}
     sys.path.insert(0, root)
     from paddle_tpu_torch.ops import _build
     _build.build_all(list(KERNELS))
     results = {}
-    for name, fault in FAULTS.items():
+    for name, fault in faults.items():
         tmp = planted_copy(root, fault)
         try:
             proc = subprocess.run(
@@ -175,8 +210,8 @@ def main():
                 flag = "" if not fault_check._fails(share) else " FAILS"
                 print(f"[{name}] {group} {case}: {value} ({share:.3g} of "
                       f"the bound{flag}; {note})", flush=True)
-    caught = verdict(FAULTS, results)
-    ok = not any(caught["none"].values()) and all(
+    caught = verdict(faults, results)
+    ok = not any(caught.get("none", {}).values()) and all(
         v and all(v.values()) for n, v in caught.items() if n != "none")
     print(json.dumps({"ok": ok, "catch_factor": fault_check.CATCH_FACTOR,
                       "caught": caught}))
